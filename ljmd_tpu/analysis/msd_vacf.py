@@ -11,7 +11,7 @@ with origins t0 = 0, stride, 2*stride, ... < n_snap-1, per-lag origin counts
 their valid lags), and the per-origin average taken over particles first —
 identical estimator, including the subtle normalization choices.
 
-TPU-native design: instead of the reference's Python loop over origins with
+Design: instead of the reference's Python loop over origins with
 NumPy slices, a ``lax.scan`` over origins whose body is one vectorized
 (max_lag+1, N, 3) window operation (dynamic_slice into a zero-padded frame
 buffer + validity mask), so the whole estimator is a single jitted program

@@ -11,8 +11,8 @@ rho_eff = n_eff / L^3 uses the subsampled particle count — semantics kept
 exactly, including the evenly-spaced subsampling (<=200 snapshots, <=800
 particles by default).
 
-TPU-native design: a ``lax.scan`` over snapshots; each snapshot computes the
-full (n_eff, n_eff) MIC distance matrix as per-component lane-friendly tiles
+Design: a ``lax.scan`` over snapshots; each snapshot computes the
+full (n_eff, n_eff) MIC distance matrix as per-component elementwise arrays
 and bins it with a one-shot fixed-length ``bincount`` (scatter-add with a
 static bin count), all inside one jit.
 """

@@ -119,6 +119,15 @@ def cmd_simulate(args) -> int:
 def cmd_analyze(args) -> int:
     from ljmd_tpu.analysis.report import analyze_run
 
+    if not args.no_plots:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise SystemExit(
+                "error: analyze draws its plots with matplotlib, which is not "
+                "installed; pass --no-plots to write the analysis without them"
+            ) from e
+
     summary = analyze_run(
         args.run_dir,
         skip_rva=args.skip_rva,
@@ -239,30 +248,36 @@ def cmd_run_all(args) -> int:
     args.vacf_tmax_frac = 1.0
     args.rva_max_lag = None
     args.origin_stride = None
-    args.no_plots = False
     return cmd_analyze(args)
+
+
+# Default cache directory: fixed and inside the checkout (the path is part
+# of the cache key, so a moving directory never hits). Listed in .gitignore.
+DEFAULT_COMPILE_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 
 def _enable_compile_cache(args) -> None:
     """Persistent XLA compilation cache (on by default for every command).
 
-    The reference's defining workload is compile-dominated on TPU: the
-    500k-step default run is ~36 s wall of which < 2 s is device compute —
-    the rest is XLA/Mosaic compilation that is bit-identical across
-    invocations. Caching keys on (HLO, compiler version, platform), so
-    correctness is XLA's own contract; disable with --no-compile-cache or
-    relocate with --compile-cache DIR / LJMD_COMPILE_CACHE."""
+    An MD run compiles many programs (init, warmup, sample chunk, rebin,
+    correlations) that are bit-identical across invocations of one config.
+    Caching keys on (HLO, compiler version, platform), so correctness is
+    XLA's own contract. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+    reads it itself and the code sets no other directory; otherwise
+    --compile-cache DIR, or ``DEFAULT_COMPILE_CACHE``. Disable with
+    --no-compile-cache."""
     if getattr(args, "no_compile_cache", False):
         return
-    cache_dir = (
-        getattr(args, "compile_cache", None)
-        or os.environ.get("LJMD_COMPILE_CACHE")
-        or os.path.join(os.path.expanduser("~"), ".cache", "ljmd_tpu", "xla")
-    )
+    cache_dir = None
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        cache_dir = getattr(args, "compile_cache", None) or DEFAULT_COMPILE_CACHE
     try:
         import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        if cache_dir is not None:
+            jax.config.update("jax_compilation_cache_dir", cache_dir)
         # Default thresholds skip sub-second compiles; an MD run is MANY
         # small programs (init, rebin, chunk, corr) whose compiles add up.
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
@@ -283,11 +298,11 @@ def build_parser() -> argparse.ArgumentParser:
     def common(sp):
         sp.add_argument("--config", help="reference block-text or JSON config file")
         sp.add_argument("--backend", default="auto",
-                        choices=["auto", "dense", "pallas", "zsort", "neighbor", "cellpair"])
+                        choices=["auto", "dense", "neighbor", "cellpair"])
         sp.add_argument("--compile-cache", metavar="DIR",
                         help="persistent XLA compilation cache directory "
-                             "(default ~/.cache/ljmd_tpu/xla, or "
-                             "LJMD_COMPILE_CACHE)")
+                             "(default .jax_cache/ in the checkout; "
+                             "JAX_COMPILATION_CACHE_DIR, when set, wins)")
         sp.add_argument("--no-compile-cache", action="store_true",
                         help="disable the persistent compilation cache")
 
@@ -340,6 +355,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out-dir")
     sp.add_argument("--from-init")
     sp.add_argument("--no-frames", action="store_true")
+    sp.add_argument("--no-plots", action="store_true")
     sp.set_defaults(fn=cmd_run_all)
 
     return p

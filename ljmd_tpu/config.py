@@ -1,4 +1,4 @@
-"""Simulation configuration for the TPU-native Lennard-Jones MD engine.
+"""Simulation configuration for the JAX Lennard-Jones MD engine.
 
 This is the rebuild of the reference's parameter layer:
 
@@ -45,7 +45,7 @@ class SimConfig:
     Rebuild-specific fields (promoted from values hardcoded in the reference,
     per SURVEY §5.6):
 
-    - ``dtype``: "float32" (TPU-native) or "float64" (parity/testing)
+    - ``dtype``: "float32" (production) or "float64" (parity/testing)
     - ``seed``: PRNG seed for velocity init (reference hardcodes -12345)
     - ``use_tail_corrections``: compile-time flag in the reference
       (``lj_potential_energy.f90:36``)

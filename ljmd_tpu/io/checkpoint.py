@@ -50,8 +50,8 @@ class Checkpoint:
     # order is history-dependent (the unstable pencil sort keys on the
     # previous slot index), so re-initializing from the particle-order
     # MDState produces a different within-pencil rank order and hence a
-    # different f32 summation order (found by the round-5 N=62500
-    # kill-and-resume demo on TPU: resumed means differed at ~5e-7).
+    # different f32 summation order (an N=62500 kill-and-resume run's
+    # resumed means differed at ~5e-7).
     carry_leaves: Optional[list] = None
 
 

@@ -108,8 +108,8 @@ class TrajectoryWriter:
         the number of frames already on disk (from its checkpoint); the file
         is TRUNCATED to exactly that many frames first (a kill during a later
         chunk's write can leave extra or partial frame records past the
-        checkpointed count — found by the round-5 N=62500 kill-and-resume
-        demo on TPU, where the resumed rva.dat carried a torn frame);
+        checkpointed count — an N=62500 kill-and-resume run's resumed
+        rva.dat once carried a torn frame);
         ``close()`` patches the header with the final total as usual."""
         _truncate_to_frames(path, n, frames_present)
         self = cls.__new__(cls)

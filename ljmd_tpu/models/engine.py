@@ -1,9 +1,10 @@
 """Engine abstraction: a (carry, step) pair for the MD time loop.
 
-The dense/Pallas force backends are pure functions of positions, so their
-scan carry is just the MDState. The neighbor-list backend keeps a Verlet
-list in the carry and rebuilds it (inside ``lax.cond``) whenever a particle
-has moved more than skin/2 since the last build. The drivers
+The dense backend is a pure function of positions, so its scan carry is just
+the MDState. The neighbor-list backend keeps a Verlet list in the carry and
+rebuilds it (inside ``lax.cond``) whenever a particle has moved more than
+skin/2 since the last build. The pencil backend (``parallel/spatial_pencil``)
+keeps particles binned into cell columns. The drivers
 (``models/simulation.py``) are written against this interface, so every
 backend gets the same sampling cadence, statistics, and artifacts.
 """
@@ -19,9 +20,7 @@ from jax import lax
 
 from ljmd_tpu.config import SimConfig
 from ljmd_tpu.models.forces import make_force_fn
-from ljmd_tpu.models.integrators import velocity_verlet_step
 from ljmd_tpu.ops.geometry import minimum_image, wrap_positions
-from ljmd_tpu.ops.lj import tail_corrections
 from ljmd_tpu.ops.neighbor import (
     build_neighbor_list_dense,
     estimate_capacity,
@@ -30,26 +29,25 @@ from ljmd_tpu.ops.neighbor import (
 )
 from ljmd_tpu.state import MDState, StepObs, kinetic_energy
 
-__all__ = ["Engine", "make_engine"]
+__all__ = ["Engine", "make_engine", "auto_backend", "PENCIL_MIN_N"]
+
+# Smallest N that ``auto`` sends to the pencil engine instead of the neighbor
+# list. The neighbor build materialises N x N arrays and sorts every row, so
+# its memory grows as N^2; the pencil engine's grows as N. Set from the
+# neighbor-vs-pencil measurement recorded in PERF.md (on an H100 the two tie
+# at N=4000 and the pencil engine is 1.7x faster at N=6912).
+PENCIL_MIN_N = 5000
 
 
 class Engine(NamedTuple):
     """init(state) -> (carry, obs at t=0); step(carry) -> (carry, obs);
     get_state(carry) -> MDState; diagnostics(carry) -> dict of arrays.
-    ``step_fast`` advances WITHOUT computing energy/virial observables
-    (returns garbage obs) — drivers use it for the un-sampled steps between
-    samples, saving the e/du/ddu kernel work (~10%).
-    ``run_fast(carry, n_steps)`` (n_steps static), when not None, advances
-    n_steps observable-free steps in fused multi-step kernels — removing the
-    per-scan-iteration launch floor (~15-20us/step on this runtime). Its
-    trajectory is numerically equivalent to n_steps x step_fast but NOT
-    bit-identical (wrap timing and reduction order differ).
-    ``run_sample(carry, n_steps)`` (n_steps static), when not None, advances
-    n_steps and returns (carry, StepObs of the FINAL step) — the fused
-    equivalent of run_fast(n_steps-1) + step, with the observable partials
-    accumulated by the final chunk step's own sweep instead of a separate
-    per-step observable program (obs values are sum-order different from
-    ``step``'s, trajectory equivalent to run_fast semantics)."""
+    ``step_fast`` advances WITHOUT needing the energy/virial observables
+    (its obs may be garbage) — drivers use it for the un-sampled steps
+    between samples. ``run_fast(carry, n_steps)`` (n_steps static), when not
+    None, advances n_steps observable-free steps in larger chunks; its
+    trajectory is numerically equivalent to n_steps x step_fast but not
+    necessarily bit-identical."""
 
     init: Callable[[MDState], tuple[Any, StepObs]]
     step: Callable[[Any], tuple[Any, StepObs]]
@@ -57,120 +55,27 @@ class Engine(NamedTuple):
     diagnostics: Callable[[Any], dict]
     step_fast: Callable[[Any], tuple[Any, StepObs]] = None
     run_fast: Callable[[Any, int], Any] = None
-    run_sample: Callable[[Any, int], tuple[Any, StepObs]] = None
 
 
 def _effective_dtype(cfg: SimConfig) -> jnp.dtype:
     """The dtype arrays ACTUALLY get. A float64 config silently truncates to
-    float32 when x64 is disabled (the TPU path) — the precision policy
-    (compensated summation, extended two-float mode) must follow the real
-    dtype, not the requested one, or a dt=1e-4 "f64" run on TPU integrates
-    in plain f32 and drifts ~12% per 100k steps (measured; the compensated
-    path holds ~5e-4)."""
+    float32 when x64 is disabled — the precision policy (compensated
+    summation) must follow the real dtype, not the requested one, or a
+    dt=1e-4 "f64" run silently integrates in plain f32."""
     dt = jnp.dtype(cfg.dtype)
     if dt == jnp.float64 and not jax.config.jax_enable_x64:
         return jnp.dtype(jnp.float32)
     return dt
 
 
-def _force_engine(cfg: SimConfig, backend: str) -> Engine:
-    force_fn = make_force_fn(cfg, backend)
-
-    def init(state: MDState):
-        res = force_fn(state.r)
-        obs = StepObs(res.epot, kinetic_energy(state.v), res.d_epot, res.dd_epot)
-        return MDState(state.r, state.ru, state.v, res.a), obs
-
-    def step(carry: MDState):
-        return velocity_verlet_step(carry, force_fn, cfg.dt, cfg.box_length)
-
-    return Engine(
-        init=init, step=step, get_state=lambda c: c,
-        diagnostics=lambda c: {}, step_fast=step,
+def _compensated(cfg: SimConfig) -> bool:
+    """Precision policy shared by every engine: f32 at dt <= 1e-3 loses most
+    of the velocity-increment bits per step, so positions and velocities
+    get Neumaier-compensated updates there (or whenever the config asks).
+    f64 increments do not underflow."""
+    return (cfg.compensated_sum or cfg.dt <= 1.0e-3) and (
+        _effective_dtype(cfg) == jnp.float32
     )
-
-
-def _neighbor_engine(cfg: SimConfig) -> Engine:
-    L = cfg.box_length
-    skin = cfg.neighbor_skin
-    r_list = cfg.rc + skin
-    if not r_list < 0.5 * L:
-        raise ValueError(
-            f"rc + skin = {r_list} must stay below L/2 = {0.5 * L} for MIC "
-            "(shrink neighbor_skin or use the dense backend)"
-        )
-    capacity = cfg.neighbor_capacity or estimate_capacity(cfg.density, r_list)
-    r_list_sq = r_list * r_list
-
-    def build(r):
-        return build_neighbor_list_dense(r, L, r_list_sq, capacity)
-
-    def force(r, nbrs):
-        return lj_force_energy_neighbor(
-            r,
-            nbrs.idx,
-            box_length=L,
-            rc_square=cfg.rc_square,
-            use_tail_corrections=cfg.use_tail_corrections,
-            volume=cfg.volume,
-            rc=cfg.rc,
-        )
-
-    def init(state: MDState):
-        nbrs = build(state.r)
-        res = force(state.r, nbrs)
-        obs = StepObs(res.epot, kinetic_energy(state.v), res.d_epot, res.dd_epot)
-        return (MDState(state.r, state.ru, state.v, res.a), nbrs), obs
-
-    def step(carry):
-        state, nbrs = carry
-        dtype = state.r.dtype
-        dt = jnp.asarray(cfg.dt, dtype)
-        half_dt = jnp.asarray(0.5 * cfg.dt, dtype)
-        half_dt_sq = jnp.asarray(0.5 * cfg.dt * cfg.dt, dtype)
-
-        r_new = wrap_positions(state.r + state.v * dt + state.a * half_dt_sq, L)
-        v_half = state.v + state.a * half_dt
-
-        sticky_overflow = nbrs.overflow
-        nbrs = lax.cond(
-            needs_rebuild(nbrs, r_new, L, skin),
-            lambda r: build(r),
-            lambda r: nbrs,
-            r_new,
-        )
-        nbrs = dataclasses.replace(nbrs, overflow=nbrs.overflow | sticky_overflow)
-
-        res = force(r_new, nbrs)
-        v_new = v_half + res.a * half_dt
-        ekin = kinetic_energy(v_new)
-        ru_new = state.ru + minimum_image(r_new - state.r, L)
-        new_state = MDState(r=r_new, ru=ru_new, v=v_new, a=res.a)
-        return (new_state, nbrs), StepObs(res.epot, ekin, res.d_epot, res.dd_epot)
-
-    return Engine(
-        init=init,
-        step=step,
-        get_state=lambda c: c[0],
-        diagnostics=lambda c: {"neighbor_overflow": c[1].overflow},
-        step_fast=step,
-    )
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class RowCarry:
-    """Scan carry in TPU-native row layout: each field is (8, n_pad) with
-    x/y/z in rows 0..2, rows 3..7 and columns >= N kept identically zero.
-    ``rc``/``vc`` are Kahan compensation terms (zeros when compensation is
-    off)."""
-
-    r: jax.Array
-    ru: jax.Array
-    v: jax.Array
-    a: jax.Array
-    rc: jax.Array
-    vc: jax.Array
 
 
 def _comp_add(x: jax.Array, c: jax.Array, delta: jax.Array):
@@ -185,1620 +90,150 @@ def _comp_add(x: jax.Array, c: jax.Array, delta: jax.Array):
     return t, c_new
 
 
-def _pallas_rows_engine(
-    cfg: SimConfig,
-    interpret: bool | None = None,
-    triangular: bool = True,
-    compensated: bool | None = None,
-    tile_i: int | None = None,
-    tile_j: int | None = None,
-) -> Engine:
-    """Dense Pallas backend with a layout-native carry.
+def _jnp_engine(cfg: SimConfig, backend: str) -> Engine:
+    """Dense (``backend="dense"``) or Verlet-list (``"neighbor"``) engine.
 
-    The (N, 3) <-> (8, n_pad) conversion (a transpose = full relayout on
-    TPU) happens only at init/get_state; every step is pure row-matrix
-    elementwise work + the tiled pair sweep. This removes the ~20x per-step
-    overhead the (N, 3) wrapper pays inside a scan.
-
-    ``triangular=True`` (default) evaluates each pair once with tile-level
-    Newton's-3rd-law reaction buffers, skipping sub-diagonal tiles.
-    """
-    from ljmd_tpu.ops.pallas_lj import (
-        _round_up,
-        pallas_pair_sweep,
-        pallas_pair_sweep_tri,
-    )
-
-    if interpret is None:
-        try:
-            interpret = jax.devices()[0].platform != "tpu"
-        except Exception:  # pragma: no cover
-            interpret = True
-
-    n = cfg.n
-    # tile_i/tile_j are both LANE dimensions of their block specs, so each
-    # must be a multiple of 128 on real TPUs (interpret mode is laxer and
-    # masked this for tiny N). Best v5e shape: TI=128, TJ=1024 at mid N;
-    # below 1024 particles a SINGLE j-tile spanning n_pad wins (fewer tile
-    # visits; each visit pays ~0.4us of slice/reduction overhead).
-    if tile_i is None:
-        tile_i = 128
-    if tile_j is None:
-        if n >= 1024:
-            tile_j = 1024
-        else:
-            # Small-N sweep (scripts/exp_smalln.py, v5e): TJ = n_pad/2 wins
-            # at n_pad=512 (3.55 vs 3.73 us/step at N=500), TJ=128 at
-            # n_pad=256; a single whole-row j-tile loses (4.07). Pick the
-            # largest 128-multiple divisor of n_pad that is <= n_pad/2.
-            p = _round_up(n, 128)
-            nb = p // 128
-            best = 1
-            for d in range(1, nb // 2 + 1):
-                if nb % d == 0 and 2 * d <= nb:
-                    best = max(best, d)
-            tile_j = 128 * best
-    n_pad = _round_up(n, max(tile_i, tile_j))
+    Carry: ``(state, nbrs, comp)`` — ``nbrs`` is the NeighborList (None for
+    dense) and ``comp`` the (position, velocity) compensation terms (None
+    unless the precision policy compensates)."""
     L = cfg.box_length
-    dtype = _effective_dtype(cfg)
+    dt = cfg.dt
+    compensated = _compensated(cfg)
 
-    e_t, d_t, dd_t = (
-        tail_corrections(n, cfg.volume, cfg.rc)
-        if cfg.use_tail_corrections
-        else (0.0, 0.0, 0.0)
-    )
-    # Zero force rows 3..7 (they carry e/du/ddu partials out of the kernel).
-    row_mask = jnp.zeros((8, 1), dtype).at[0:3].set(1.0)
+    if backend == "dense":
+        force_fn = make_force_fn(cfg, "dense")
 
-    def to_rows(x):  # (N, 3) -> (8, n_pad)
-        return jnp.zeros((8, n_pad), dtype).at[0:3, :n].set(x.T.astype(dtype))
+        def force(r, nbrs):
+            return force_fn(r), None
 
-    # Triangular sweep counts each pair once (prefactors 4/24); the full
-    # sweep counts twice (2/12).
-    e_pref, d_pref = (4.0, 24.0) if triangular else (2.0, 12.0)
-
-    def sweep(pos, want_obs=True):
-        # Fast reciprocal + one Newton step: ~1 ulp on 1/r^2 (far below the
-        # f32 force-noise floor), measured ~8% faster on v5e. Interpreter
-        # mode keeps the exact divide so CPU parity tests stay bit-strict.
-        if triangular:
-            return pallas_pair_sweep_tri(
-                pos, n, L, cfg.rc_square, tile_i=tile_i, tile_j=tile_j,
-                interpret=interpret, want_observables=want_obs,
-                approx_reciprocal=True,
+        def maybe_rebuild(r, nbrs):
+            return None
+    else:
+        skin = cfg.neighbor_skin
+        r_list = cfg.rc + skin
+        if not r_list < 0.5 * L:
+            raise ValueError(
+                f"rc + skin = {r_list} must stay below L/2 = {0.5 * L} for MIC "
+                "(shrink neighbor_skin or use the dense backend)"
             )
-        return pallas_pair_sweep(
-            pos, n, L, cfg.rc_square, tile_i=tile_i, tile_j=tile_j,
-            interpret=interpret, want_observables=want_obs,
-            approx_reciprocal=True,
-        )
+        capacity = cfg.neighbor_capacity or estimate_capacity(cfg.density, r_list)
 
-    def obs_from(out, ekin):
-        return StepObs(
-            epot=e_pref * jnp.sum(out[3]) + jnp.asarray(e_t, dtype),
-            ekin=ekin,
-            d_epot=d_pref * jnp.sum(out[4]) + jnp.asarray(d_t, dtype),
-            dd_epot=d_pref * jnp.sum(out[5]) + jnp.asarray(dd_t, dtype),
-        )
+        def build(r):
+            return build_neighbor_list_dense(r, L, r_list * r_list, capacity)
 
-    # Auto-enable compensation in the increment-underflow regime: at
-    # dt <= 1e-3 in f32 the velocity updates lose most of their bits and the
-    # energy drifts grossly (measured: the reference's dt=1e-4 config drifts
-    # 12% per 100k steps plain vs 5e-4 compensated). Cost is a few
-    # elementwise row ops — negligible next to the pair sweep.
-    if compensated is None:
-        # auto: only f32 needs it (f64 increments don't underflow)
-        compensated = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == jnp.float32
+        def force(r, nbrs):
+            nbrs = build(r) if nbrs is None else nbrs
+            return lj_force_energy_neighbor(
+                r, nbrs.idx, box_length=L, rc_square=cfg.rc_square,
+                use_tail_corrections=cfg.use_tail_corrections,
+                volume=cfg.volume, rc=cfg.rc,
+            ), nbrs
+
+        def maybe_rebuild(r, nbrs):
+            new = lax.cond(needs_rebuild(nbrs, r, L, skin), build, lambda _: nbrs, r)
+            # overflow is sticky: a list that ever overflowed taints the run
+            return dataclasses.replace(new, overflow=new.overflow | nbrs.overflow)
 
     def init(state: MDState):
-        r8 = to_rows(state.r)
-        ru8 = to_rows(state.ru)
-        v8 = to_rows(state.v)
-        out = sweep(r8)
-        a8 = 24.0 * out * row_mask
-        ekin = 0.5 * jnp.sum(v8 * v8)
-        zero = jnp.zeros_like(r8)
-        return (
-            RowCarry(r=r8, ru=ru8, v=v8, a=a8, rc=zero, vc=zero),
-            obs_from(out, ekin),
-        )
+        res, nbrs = force(state.r, None)
+        obs = StepObs(res.epot, kinetic_energy(state.v), res.d_epot, res.dd_epot)
+        comp = (jnp.zeros_like(state.r), jnp.zeros_like(state.v)) if compensated else None
+        return (MDState(state.r, state.ru, state.v, res.a), nbrs, comp), obs
 
-    dt = cfg.dt
-    half_dt = 0.5 * cfg.dt
-    half_dt_sq = 0.5 * cfg.dt * cfg.dt
-
-    def _step(c: RowCarry, want_obs: bool):
+    def step(carry):
+        """Velocity Verlet (verlet.f90:58-95) plus the unwrap update
+        (md_simulation_program.f90:339-353)."""
+        state, nbrs, comp = carry
+        drift = state.v * dt + state.a * (0.5 * dt * dt)
+        kick = state.a * (0.5 * dt)
         if compensated:
-            r_raw, rc_new = _comp_add(c.r, c.rc, c.v * dt + c.a * half_dt_sq)
-            r_new = wrap_positions(r_raw, L)
-            v_half, vc_half = _comp_add(c.v, c.vc, c.a * half_dt)
+            r_raw, rc = _comp_add(state.r, comp[0], drift)
+            v_half, vc = _comp_add(state.v, comp[1], kick)
         else:
-            r_new = wrap_positions(c.r + c.v * dt + c.a * half_dt_sq, L)
-            rc_new = c.rc
-            v_half, vc_half = c.v + c.a * half_dt, c.vc
-        out = sweep(r_new, want_obs)
-        a_new = 24.0 * out * row_mask
+            r_raw, v_half = state.r + drift, state.v + kick
+        r_new = wrap_positions(r_raw, L)
+        if nbrs is not None:
+            nbrs = maybe_rebuild(r_new, nbrs)
+        res, nbrs = force(r_new, nbrs)
         if compensated:
-            v_new, vc_new = _comp_add(v_half, vc_half, a_new * half_dt)
-            v_eff = v_new + vc_new
+            v_new, vc = _comp_add(v_half, vc, res.a * (0.5 * dt))
+            ekin = kinetic_energy(v_new + vc)
+            comp = (rc, vc)
         else:
-            v_new, vc_new = v_half + a_new * half_dt, vc_half
-            v_eff = v_new
-        ekin = 0.5 * jnp.sum(v_eff * v_eff)
-        ru_new = c.ru + minimum_image(r_new - c.r, L)
-        return (
-            RowCarry(r=r_new, ru=ru_new, v=v_new, a=a_new, rc=rc_new, vc=vc_new),
-            obs_from(out, ekin),
-        )
+            v_new = v_half + res.a * (0.5 * dt)
+            ekin = kinetic_energy(v_new)
+        ru_new = state.ru + minimum_image(r_new - state.r, L)
+        new_state = MDState(r=r_new, ru=ru_new, v=v_new, a=res.a)
+        return (new_state, nbrs, comp), StepObs(res.epot, ekin, res.d_epot, res.dd_epot)
 
-    def step(c: RowCarry):
-        return _step(c, True)
+    def get_state(carry) -> MDState:
+        state, _, comp = carry
+        if comp is None:
+            return state
+        return MDState(r=state.r, ru=state.ru, v=state.v + comp[1], a=state.a)
 
-    def step_fast(c: RowCarry):
-        return _step(c, False)
-
-    def get_state(c: RowCarry) -> MDState:
-        v = c.v + c.vc if compensated else c.v
-        return MDState(
-            r=c.r[0:3, :n].T,
-            ru=c.ru[0:3, :n].T,
-            v=v[0:3, :n].T,
-            a=c.a[0:3, :n].T,
-        )
-
-    def run_fast(c: RowCarry, n_steps: int) -> RowCarry:
-        """Fused multi-step advance: the whole Verlet loop inside single
-        Pallas programs (chunks of <= MAX_CHUNK_STEPS), with the unwrap
-        update and the [0, L) wrap applied once per chunk (exact: positions
-        are never wrapped inside a chunk)."""
-        from ljmd_tpu.ops.pallas_fused import MAX_CHUNK_STEPS, fused_dense_chunk
-
-        r, ru, v, a = c.r, c.ru, c.v, c.a
-        remaining = n_steps
-        while remaining > 0:
-            k = min(MAX_CHUNK_STEPS, remaining)
-            r_end, v, a = fused_dense_chunk(
-                r, v, a, n, L, cfg.rc_square, dt, k,
-                tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-                approx_reciprocal=True,
-            )
-            ru = ru + (r_end - r)
-            r = wrap_positions(r_end, L)
-            remaining -= k
-        return RowCarry(r=r, ru=ru, v=v, a=a, rc=c.rc, vc=c.vc)
-
-    def run_fast_ext(c: RowCarry, n_steps: int) -> RowCarry:
-        """Compensated-mode fused advance: two-float positions (r + rc) and
-        compensated velocities inside the kernel, pair displacements
-        corrected by the remainder rows. This is the f32 drift fix for both
-        small dt (increment underflow) AND the dt~5e-3 kernel-input
-        quantization floor (docs/RESULTS.md)."""
-        from ljmd_tpu.ops.pallas_fused import (
-            MAX_CHUNK_STEPS,
-            fused_dense_chunk_ext,
-            wrap_positions_ext,
-        )
-
-        r, rc_, ru, v, vc_, a = c.r, c.rc, c.ru, c.v, c.vc, c.a
-        remaining = n_steps
-        while remaining > 0:
-            k = min(MAX_CHUNK_STEPS, remaining)
-            r_end, rc_end, v, vc_, a = fused_dense_chunk_ext(
-                r, rc_, v, vc_, a, n, L, cfg.rc_square, dt, k,
-                tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-                approx_reciprocal=True,
-            )
-            ru = ru + ((r_end - r) + (rc_end - rc_))
-            r, rc_ = wrap_positions_ext(r_end, rc_end, L)
-            remaining -= k
-        return RowCarry(r=r, ru=ru, v=v, a=a, rc=rc_, vc=vc_)
+    def diagnostics(carry) -> dict:
+        nbrs = carry[1]
+        return {} if nbrs is None else {"neighbor_overflow": nbrs.overflow}
 
     return Engine(
         init=init, step=step, get_state=get_state,
-        diagnostics=lambda c: {}, step_fast=step_fast,
-        run_fast=run_fast_ext if compensated else run_fast,
+        diagnostics=diagnostics, step_fast=step,
     )
 
 
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class ZSortCarry:
-    """Carry of the z-sorted fused engine: (8, n_pad) rows in ascending-z
-    column order (padding columns last), particle ids (-1 for padding),
-    reference positions from the last sort (displacement criterion), the
-    packed visit lists, and a sticky validity flag (set if a particle
-    outran the sort skin between checks — results then suspect, mirroring
-    the pencil engine's overflow flag). ``rlo``/``vc`` are the two-float
-    position remainders / velocity compensation terms of the extended
-    precision mode (zeros otherwise)."""
-
-    r: jax.Array
-    ru: jax.Array
-    v: jax.Array
-    a: jax.Array
-    ids: jax.Array
-    r_ref: jax.Array
-    tiles: jax.Array
-    tcounts: jax.Array
-    invalid: jax.Array
-    rlo: jax.Array
-    vc: jax.Array
-
-
-def _zsort_engine(
-    cfg: SimConfig,
-    interpret: bool | None = None,
-    sort_skin: float | None = None,
-    inner_chunk: int = 16,
-    tile_i: int = 128,
-    tile_j: int | None = None,
-    extended: bool | None = None,
-    slab_sort: bool | None = None,
-    n_pad: int | None = None,
-    mxu_reduce: bool = False,
-    trigger: str = "always",
-    tail_tiles: bool = True,
-    trans_acc: bool | None = None,
-) -> Engine:
-    """Dense fused engine with sorted tile skipping.
-
-    Particles are kept in sorted column order — ascending z, or, with
-    ``slab_sort``, lexicographic (x-slab, z) where the box is cut into
-    floor(L / window) x-slabs of width >= window — and the fused multi-step
-    kernel gates each (i-tile, j-tile) pair on precomputed per-axis
-    interval overlap flags (window rc + 1.2*sort_skin), skipping tile
-    pairs whose columns cannot interact. Slab sorting adds x
-    discrimination (tiles in non-adjacent slabs are skipped) at the cost
-    of coarser z-intervals per block; it pays once the per-slab z-window
-    spans many j-tiles (large n), and loses at small n where the
-    per-visit floor dominates (``slab_sort=None`` picks by n).
-    ``tail_tiles`` (default on) emits each window cover's last visit at
-    its exact active width instead of a full tile_j slice (per-width tail
-    lists, full-MIC masked sweep body) — removes the cover-end
-    quantization waste (measured 46.4 us/step of 394 at N=16384 slab;
-    3.4 us at N=4000 — scripts/exp_tailwaste.py). The order
-    and flags refresh every ``inner_chunk`` steps between fused kernels
-    under the ``trigger`` policy: "always" (default) rebuilds
-    unconditionally — branchless, no displacement check, skin sized to
-    the ONE-chunk travel bound (measured fastest: the lax.cond'd modes
-    pay more in branch/copy overhead than the rebuilds they skip,
-    scripts/exp_resort*.py); "predictive" fires when a particle's
-    sorted-axis displacement plus its own velocity lookahead would cross
-    the 0.6*sort_skin validity bound by the next check; "static" fires
-    at sort_skin/4 displacement; "never" disables resorts (floor
-    measurements only). A particle
-    exceeding 0.6*sort_skin between checks sets the sticky ``invalid``
-    diagnostic (the flag window's exact validity bound — see the margin
-    note below). Per-step
-    ``step``/``step_fast`` use the plain (order-agnostic) triangular
-    sweep, so sampled observables are always exact regardless of flag
-    staleness."""
-    from ljmd_tpu.ops.pallas_fused import (
-        build_window_lists,
-        build_window_lists_pallas,
-        compute_tile_flags,
-        fused_dense_chunk_list,
-        wrap_positions_ext,
-    )
-    from ljmd_tpu.ops.pallas_lj import (
-        _round_up,
-        pallas_pair_sweep_tri,
-    )
-
-    if extended is None:
-        # auto: only f32 needs it (f64 has headroom at these dts)
-        extended = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and (
-            _effective_dtype(cfg) == jnp.float32
-        )
-    if interpret is None:
-        try:
-            interpret = jax.devices()[0].platform != "tpu"
-        except Exception:  # pragma: no cover
-            interpret = True
-    if trigger not in ("always", "predictive", "static", "never"):
-        raise ValueError(f"unknown resort trigger {trigger!r}")
-
-    if sort_skin is None and trigger == "always":
-        # Unconditional resort every inner_chunk steps: the flag window
-        # only has to stay valid across ONE chunk, so the skin needs to
-        # cover just the worst per-chunk travel with margin:
-        # 0.6*skin >= 1.15 * v_max * inner_chunk * dt (v_max ~ 4.4
-        # sigma/tau measured at the T*~0.73 liquid point) -> skin ~
-        # 8.5*inner_chunk*dt. The floor covers hotter tails at small dt;
-        # no upper cap — the travel bound MUST win (a 0.7 cap at
-        # inner_chunk=24, dt=0.005 tripped sticky 'invalid' within 10k
-        # steps, exp_resort3), and the box-size clamp below rejects
-        # configs whose box cannot host the resulting window.
-        sort_skin = max(0.3, 8.5 * inner_chunk * cfg.dt)
-    if sort_skin is None:
-        # Travel-bound auto skin. Flags stay valid to 0.6*skin per-axis
-        # displacement while resorts fire at 0.25*skin; the 0.35*skin gap
-        # must exceed the worst per-chunk travel v_max*inner_chunk*dt with
-        # ~15% margin. Measured v_max ~ 4.4 sigma/tau at the T*~0.73
-        # liquid point (max 8-step travel 0.176 at dt=0.005), so
-        # skin ~ 14.5*inner_chunk*dt. Smaller dt earns a tighter flag
-        # window (candidate count scales with rc + 1.2*skin: 65.9us vs
-        # 76.4us per step at N=4000 for 0.58 vs 0.7); the 0.3 floor keeps
-        # resorts rare and covers hotter-than-measured tails at small dt.
-        sort_skin = min(0.7, max(0.3, 14.5 * inner_chunk * cfg.dt))
-
-    n = cfg.n
-    L = cfg.box_length
-    dtype = _effective_dtype(cfg)
-    # Clamp the sort skin so the flag window respects MIC (window < L/2);
-    # tiny boxes leave no room for z discrimination -> use the rows engine.
-    clamped_skin = min(sort_skin, (0.49 * L - cfg.rc) / 1.2)
-    if clamped_skin < 0.15:
-        raise ValueError(
-            "box too small for z-sorted tile skipping (rc ~ L/2); "
-            "use the 'pallas' rows engine"
-        )
-    if trigger == "always" and clamped_skin < 0.999 * min(
-        sort_skin, 8.5 * inner_chunk * cfg.dt
-    ):
-        # The box clamp must never silently undercut the one-chunk travel
-        # bound — flags would go stale mid-chunk by construction.
-        raise ValueError(
-            "box too small for the unconditional-resort skin at this "
-            f"inner_chunk={inner_chunk}; reduce inner_chunk or use a "
-            "cond'd trigger"
-        )
-    sort_skin = clamped_skin
-    # Flag window carries a 1.2x skin margin over the resort trigger: the
-    # flags stay valid up to 0.6*skin per-axis displacement (the invalid
-    # bound), while resorts fire at 0.25*skin — a particle would need a
-    # SUSTAINED speed of ~0.35*skin / (inner_chunk*dt) (~6 sigma/tau at
-    # the default liquid point) to cross the gap within one check
-    # interval. Without the margin the bound sat exactly at skin/2 and a
-    # ~4.4 sigma/tau particle could trip 'invalid' on long runs
-    # (observed: 1 in ~5e7 particle-steps at N=4000, dt=0.005).
-    window = cfg.rc + 1.2 * sort_skin
-    resort_thresh = (0.25 * sort_skin) ** 2
-    invalid_thresh = (0.6 * sort_skin) ** 2
-    # (x-slab, z) mode: needs >= 5 slabs for the x test to exclude anything
-    # beyond trivial geometry, and a large enough n that each slab's
-    # z-window spans multiple j-tiles (below that, 3 clusters/row force
-    # MORE visits than one contiguous z run — the per-visit floor wins).
-    # Boundary measured on v5e (round 3): pure-z still wins at N=8788
-    # (182 vs 193 us/step), slab wins from N=10976 (247 vs 285).
-    n_slabs = int(L / window)
-    if slab_sort is None:
-        slab_sort = n_slabs >= 5 and n >= 10000
-    if slab_sort and n_slabs < 5:
-        raise ValueError("slab_sort needs >= 5 x-slabs of width rc+skin")
-    if tile_j is None:
-        # Measured on v5e (exp_resort3/4): TJ=512 wins in pure-z mode
-        # (65.4 vs 70.9 us/step at N=4000, chunk 16). In slab mode the
-        # wide-tile penalty was mostly cover-end padding, which tail
-        # lists trim exactly, so the ordering depends on tail_tiles
-        # (exp_tails3): with tails TJ=768 wins at both slab points
-        # (349.9 vs 367.4 us at N=16384, 459.9 vs 508.7 at N=19652);
-        # without tails TJ=384 wins (440 vs 471 at N=16384).
-        if slab_sort:
-            tile_j = 768 if tail_tiles else 384
-        else:
-            tile_j = 512
-    # 128-granular padding (the window lists place tile_j-wide visits at
-    # tile_i-aligned starts, so n_pad need not be a tile_j multiple — it
-    # only has to FIT one visit).
-    if n_pad is None:
-        n_pad = max(_round_up(n, max(tile_i, 128)), tile_j)
-    elif n_pad % max(tile_i, 128) or n_pad < max(n, tile_j):
-        raise ValueError("n_pad must be a tile multiple covering n")
-
-    e_t, d_t, dd_t = (
-        tail_corrections(n, cfg.volume, cfg.rc)
-        if cfg.use_tail_corrections
-        else (0.0, 0.0, 0.0)
-    )
-    row_mask = jnp.zeros((8, 1), dtype).at[0:3].set(1.0)
-
-    # The grid sweep's j-tile must DIVIDE n_pad (its grid floor-divides, so
-    # a non-divisor would silently drop trailing columns): pick the largest
-    # power-of-two-ish divisor.
-    sweep_tj = next(t for t in (1024, 512, 384, 256, 128) if n_pad % t == 0)
-
-    def sweep(pos, want_obs=True):
-        # Order-agnostic triangular sweep (exact for any column order).
-        return pallas_pair_sweep_tri(
-            pos, n, L, cfg.rc_square, tile_i=128, tile_j=sweep_tj,
-            interpret=interpret, want_observables=want_obs,
-            approx_reciprocal=True,
-        )
-
-    def obs_from(out, ekin):
-        return StepObs(
-            epot=4.0 * jnp.sum(out[3]) + jnp.asarray(e_t, dtype),
-            ekin=ekin,
-            d_epot=24.0 * jnp.sum(out[4]) + jnp.asarray(d_t, dtype),
-            dd_epot=24.0 * jnp.sum(out[5]) + jnp.asarray(dd_t, dtype),
-        )
-
-    # The list kernel's SMEM tile arrays scale as O(n_i * n_b); past the
-    # threshold the fused path is disabled entirely (run_fast=None):
-    # drivers fall back to the per-step grid sweep, which is slow but
-    # compiles. The pencil engine is the right choice there anyway.
-    # Window lists track intervals at tile_i (=128) block granularity, so
-    # the flag/visit arrays scale as (n_pad/tile_i)^2: at n_pad=16384 the
-    # pack kernel's SMEM holds 64 KiB of flags + a (9, 4096) visit list
-    # (144 KiB) — measured fine on v5e; 32768 block pairs is the cliff.
-    n_tile_pairs = (n_pad // tile_i) * (n_pad // tile_i)
-    fused_viable = n_tile_pairs <= 32768
-    if trans_acc is None:
-        # Transposed i-side accumulators (fused_dense_chunk_list doc):
-        # MEASURED LOSS on v5e (exp_transacc 2026-08-19, differential:
-        # N=4000 57.5 -> 59.7/60.5 us/step, ~-4%) — the per-step zero +
-        # fold transpose of the (n_pad, 8) scratches costs more than the
-        # per-visit sublane->lane relayouts it removes (Mosaic evidently
-        # schedules those off the critical path). Kept opt-in for layout
-        # experiments; don't flip without a new differential win.
-        trans_acc = False
-
-    def _lists(r8):
-        flags = compute_tile_flags(
-            r8, n, tile_i, tile_i, L, window,
-            x_window=window if slab_sort else None,
-            cross_margin=0.6 * sort_skin,
-        )
-        if interpret:
-            tiles, tcounts = build_window_lists(
-                flags, n, n_pad, tile_i, tile_j, tail_tiles=tail_tiles
-            )
-        else:
-            # One-kernel pack: the jnp builder's non-fusable small ops cost
-            # ~106us/rebuild on v5e (scripts/exp_winlist.py). zero_fill
-            # off: the sweep kernel never reads past the packed counts,
-            # and the 9*max_t scalar zero writes dominate the pack at
-            # mid N (51k SMEM writes at n_pad=16384).
-            tiles, tcounts = build_window_lists_pallas(
-                flags, n, n_pad, tile_i, tile_j, zero_fill=False,
-                tail_tiles=tail_tiles,
-            )
-        # NOTE (measured dead end, 2026-08-18): round-robin interleaving
-        # of visits across i-rows (to break the same-slice f_acc RMW
-        # chain) LOSES — 62.6 -> 65.6 us/step at N=4000, 395 -> 417 at
-        # N=16384. The row-major emission order is an asset: consecutive
-        # same-row visits keep the xi/yi/zi loads register-resident, and
-        # the reorder itself adds argsorts to every rebuild. Don't retry.
-        return tiles, tcounts
-
-    # Packed single-operand UNSTABLE sort: XLA's stable-sort comparator is
-    # ~2x slower on v5e (scripts/exp_sort.py, 2026-08-18 — stability, not
-    # operand count, is the cost), and the rebuild argsort is the dominant
-    # rebuild term (39.5 of 53 us at N=4000, exp_rebuild2). The sort key is
-    # quantized into the int32 bits above the lane index; quantization only
-    # affects z order WITHIN one bucket (< 2^-15 L here) — interval
-    # tightness, never correctness: flags and window intervals are computed
-    # from the true coordinates after the sort. Low index bits make the
-    # unstable sort deterministic by construction.
-    _bits_pad = max(1, (n_pad - 1).bit_length())
-    _slab_bits = max(1, (n_slabs - 1).bit_length()) if slab_sort else 0
-    _zq_bits = 30 - _bits_pad - _slab_bits
-    if _zq_bits < 8:
-        # Routable failure: make_engine's auto policy catches ValueError and
-        # falls through to the pencil engine (a bare assert aborted instead —
-        # VERDICT round-3 item 7).
-        raise ValueError(
-            f"z-sort key quantization too coarse ({_zq_bits} bits for "
-            f"n_pad={n_pad}, slabs={_slab_bits} bits); use the pencil engine"
-        )
-
-    def _sort(c_arrays):
-        r8, ru8, v8, a8, ids, rlo, vcc = c_arrays
-        zq = jnp.clip(
-            (r8[2] * ((1 << _zq_bits) / L)).astype(jnp.int32),
-            0, (1 << _zq_bits) - 1,
-        )
-        if slab_sort:
-            # Composite key: (x-slab, quantized z) lexicographic.
-            xb = jnp.clip(
-                (r8[0] * (n_slabs / L)).astype(jnp.int32), 0, n_slabs - 1
-            )
-            kq = (xb << _zq_bits) | zq
-        else:
-            kq = zq
-        # Invalid (padding) lanes sort last: all key bits set.
-        kq = jnp.where(ids >= 0, kq, (1 << (30 - _bits_pad)) - 1)
-        packed = (kq << _bits_pad) | jnp.arange(n_pad, dtype=jnp.int32)
-        packed = lax.sort(packed, is_stable=False)
-        order = packed & ((1 << _bits_pad) - 1)
-        # Permute ONLY the data-carrying rows, in one stacked gather:
-        # rows 3..7 of every (8, n_pad) carry array are zero throughout
-        # (kernel force rows are masked, deltas of zero rows are zero),
-        # and rlo/vc are identically zero in non-extended mode — the
-        # naive per-array 8-row permute moved 4.7x more bytes than the
-        # data. Lane gathers are the dominant resort cost on TPU
-        # (~2.6 ns/element, scripts/exp_gather.py), so this cuts the
-        # rebuild nearly proportionally.
-        parts = [r8[0:3], ru8[0:3], v8[0:3], a8[0:3]]
-        if extended:
-            parts += [rlo[0:3], vcc[0:3]]
-        stacked = jnp.concatenate(parts, axis=0)[:, order]
-        pad5 = jnp.zeros((5, n_pad), dtype)
-
-        def emb(i):
-            return jnp.concatenate([stacked[3 * i:3 * i + 3], pad5], axis=0)
-
-        rlo2, vcc2 = (emb(4), emb(5)) if extended else (rlo, vcc)
-        return (emb(0), emb(1), emb(2), emb(3), ids[order], rlo2, vcc2)
-
-    def init(state: MDState):
-        r8 = jnp.zeros((8, n_pad), dtype).at[0:3, :n].set(state.r.T.astype(dtype))
-        ru8 = jnp.zeros((8, n_pad), dtype).at[0:3, :n].set(state.ru.T.astype(dtype))
-        v8 = jnp.zeros((8, n_pad), dtype).at[0:3, :n].set(state.v.T.astype(dtype))
-        a8 = jnp.zeros((8, n_pad), dtype)
-        ids = jnp.where(jnp.arange(n_pad) < n, jnp.arange(n_pad), -1).astype(jnp.int32)
-        zero = jnp.zeros_like(r8)
-        r8, ru8, v8, a8, ids, rlo, vcc = _sort((r8, ru8, v8, a8, ids, zero, zero))
-        out = sweep(r8)
-        a8 = 24.0 * out * row_mask
-        ekin = 0.5 * jnp.sum(v8 * v8)
-        tiles0, tcounts0 = _lists(r8)
-        carry = ZSortCarry(
-            r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-            tiles=tiles0, tcounts=tcounts0,
-            invalid=jnp.asarray(False), rlo=rlo, vc=vcc,
-        )
-        return carry, obs_from(out, ekin)
-
-    dt = cfg.dt
-    half_dt = 0.5 * cfg.dt
-    half_dt_sq = 0.5 * cfg.dt * cfg.dt
-
-    def _step(c: ZSortCarry, want_obs: bool):
-        if extended:
-            delta = (c.v + c.vc) * dt + c.a * half_dt_sq
-            r_raw, rlo = _comp_add(c.r, c.rlo, delta)
-            r_new, rlo = wrap_positions_ext(r_raw, rlo, L)
-            v_half, vc_half = _comp_add(c.v, c.vc, c.a * half_dt)
-        else:
-            r_new = wrap_positions(c.r + c.v * dt + c.a * half_dt_sq, L)
-            rlo = c.rlo
-            v_half, vc_half = c.v + c.a * half_dt, c.vc
-        out = sweep(r_new, want_obs)
-        a_new = 24.0 * out * row_mask
-        if extended:
-            v_new, vc_new = _comp_add(v_half, vc_half, a_new * half_dt)
-            v_eff = v_new + vc_new
-        else:
-            v_new, vc_new = v_half + a_new * half_dt, vc_half
-            v_eff = v_new
-        ekin = 0.5 * jnp.sum(v_eff * v_eff)
-        ru_new = c.ru + minimum_image(r_new - c.r, L)
-        carry = dataclasses.replace(
-            c, r=r_new, ru=ru_new, v=v_new, a=a_new, rlo=rlo, vc=vc_new
-        )
-        return carry, obs_from(out, ekin)
-
-    def _maybe_resort(c: ZSortCarry) -> ZSortCarry:
-        if trigger == "always":
-            # Unconditional rebuild: no displacement check, no lax.cond.
-            # The branchless form avoids the conditional's buffer-copy
-            # overhead (measured ~9 us/step of the 11 us resort bill at
-            # N=4000 — scripts/exp_resort.py) and lets the skin shrink to
-            # the one-chunk travel bound. The sticky 'invalid' diagnostic
-            # still certifies the bound from the actual chunk travel.
-            d = minimum_image(c.r[0:3] - c.r_ref[0:3], L)
-            valid = (c.ids >= 0).astype(dtype)
-            dz2 = d[2] * d[2]
-            moved2 = jnp.max(
-                (jnp.maximum(d[0] * d[0], dz2) if slab_sort else dz2) * valid
-            )
-            invalid = c.invalid | (moved2 > invalid_thresh)
-            r8, ru8, v8, a8, ids, rlo, vcc = _sort(
-                (c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
-            )
-            tiles2, tcounts2 = _lists(r8)
-            return dataclasses.replace(
-                c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-                tiles=tiles2, tcounts=tcounts2,
-                rlo=rlo, vc=vcc, invalid=invalid,
-            )
-        # Flag staleness is PER-AXIS: the interval windows are separable,
-        # and only displacement along a sorted axis (z; x too in slab
-        # mode) can push a pair's axis gap past its window. Ignoring the
-        # unsorted axes both tightens correctness accounting and roughly
-        # halves the resort cadence vs the 3D-norm criterion.
-        d = minimum_image(c.r[0:3] - c.r_ref[0:3], L)
-        valid = (c.ids >= 0).astype(dtype)
-        dz2 = d[2] * d[2]
-        moved2 = jnp.max(
-            (jnp.maximum(d[0] * d[0], dz2) if slab_sort else dz2) * valid
-        )
-        invalid = c.invalid | (moved2 > invalid_thresh)
-        if trigger == "predictive":
-            # Per-particle lookahead (same idea as the pencil engine's
-            # rebin trigger): resort only when some particle's CURRENT
-            # sorted-axis displacement plus its own velocity-projected
-            # travel over the next check interval would cross the flag
-            # validity bound (0.6*skin). The static rule must budget the
-            # global worst-case chunk travel for EVERY particle; coupling
-            # each particle's d to its own v roughly doubles the usable
-            # displacement headroom (typical thermal |v_axis| ~ 0.7 vs
-            # the ~4.4 max). The 1.3 factor plus the absolute 0.02
-            # allowance covers intra-chunk acceleration; the sticky
-            # ``invalid`` bound above remains the exact violation
-            # detector either way.
-            look = 1.3 * inner_chunk * dt
-            vv = (c.v + c.vc) if extended else c.v
-            pz = jnp.abs(d[2]) + look * jnp.abs(vv[2]) + 0.02
-            if slab_sort:
-                px = jnp.abs(d[0]) + look * jnp.abs(vv[0]) + 0.02
-                pred = jnp.max(jnp.maximum(px, pz) * valid)
-            else:
-                pred = jnp.max(pz * valid)
-            fire = pred * pred > invalid_thresh
-        elif trigger == "never":  # floor measurement only (UNSAFE)
-            fire = jnp.asarray(False)
-        else:
-            fire = moved2 > resort_thresh
-
-        def do(c):
-            r8, ru8, v8, a8, ids, rlo, vcc = _sort(
-                (c.r, c.ru, c.v, c.a, c.ids, c.rlo, c.vc)
-            )
-            tiles2, tcounts2 = _lists(r8)
-            return dataclasses.replace(
-                c, r=r8, ru=ru8, v=v8, a=a8, ids=ids, r_ref=r8,
-                tiles=tiles2, tcounts=tcounts2,
-                rlo=rlo, vc=vcc,
-            )
-
-        c = lax.cond(fire, do, lambda c: c, c)
-        return dataclasses.replace(c, invalid=invalid)
-
-    def _chunk(c: ZSortCarry, k: int, obs: bool = False):
-        # run_fast exists only when fused_viable, so both modes use the
-        # active-tile LIST kernel (the flags kernel would be a compile bomb
-        # at the same scale the list kernel's SMEM would overflow).
-        c = _maybe_resort(c)
-        if extended:
-            out = fused_dense_chunk_list(
-                c.r, c.v, c.a, c.tiles, c.tcounts, n, L, cfg.rc_square, dt, k,
-                tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-                r_lo=c.rlo, vc=c.vc, j_granule=tile_i,
-                mxu_reduce=mxu_reduce, trans_acc=trans_acc, obs_last=obs,
-            )
-            r_end, rlo_end, v, vcc, a = out[:5]
-            ru = c.ru + ((r_end - c.r) + (rlo_end - c.rlo))
-            r_w, rlo_w = wrap_positions_ext(r_end, rlo_end, L)
-            c2 = dataclasses.replace(
-                c, r=r_w, ru=ru, v=v, a=a, rlo=rlo_w, vc=vcc
-            )
-            return (c2, out[5]) if obs else c2
-        out = fused_dense_chunk_list(
-            c.r, c.v, c.a, c.tiles, c.tcounts, n, L, cfg.rc_square, dt, k,
-            tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-            j_granule=tile_i, mxu_reduce=mxu_reduce, trans_acc=trans_acc,
-            obs_last=obs,
-        )
-        r_end, v, a = out[:3]
-        ru = c.ru + (r_end - c.r)
-        c2 = dataclasses.replace(
-            c, r=wrap_positions(r_end, L), ru=ru, v=v, a=a
-        )
-        return (c2, out[3]) if obs else c2
-
-    def run_fast(c: ZSortCarry, n_steps: int) -> ZSortCarry:
-        full, rem = divmod(n_steps, inner_chunk)
-        if full > 0:
-            c, _ = lax.scan(
-                lambda cc, _: (_chunk(cc, inner_chunk), None),
-                c, None, length=full,
-            )
-        if rem:
-            c = _chunk(c, rem)
-        return c
-
-    def run_sample(c: ZSortCarry, n_steps: int):
-        """run_fast(n_steps) + final-step observables in ONE fused path:
-        the last chunk runs with obs_last=True, so the sampled production
-        cycle needs no separate observable sweep program (the per-step
-        grid sweep cost ~9.9 us/replica/sample at config-4 scale,
-        scripts/exp_ens_attrib2.py). Same trajectory semantics as
-        run_fast; obs match ``step``'s up to summation order."""
-        full, rem = divmod(n_steps, inner_chunk)
-        if rem == 0:
-            full, rem = full - 1, inner_chunk
-        if full > 0:
-            c, _ = lax.scan(
-                lambda cc, _: (_chunk(cc, inner_chunk), None),
-                c, None, length=full,
-            )
-        c, obs8 = _chunk(c, rem, obs=True)
-        v_eff = c.v + c.vc if extended else c.v
-        ekin = 0.5 * jnp.sum(v_eff * v_eff)
-        return c, obs_from(obs8, ekin)
-
-    def get_state(c: ZSortCarry) -> MDState:
-        idx = jnp.where(c.ids >= 0, c.ids, n)
-
-        def gather(arr):
-            out = jnp.zeros((n + 1, 3), dtype)
-            out = out.at[idx].set(arr[0:3, :].T, unique_indices=True)
-            return out[:n]
-
-        v8 = c.v + c.vc if extended else c.v
-        return MDState(r=gather(c.r), ru=gather(c.ru), v=gather(v8), a=gather(c.a))
-
-    return Engine(
-        init=init,
-        step=lambda c: _step(c, True),
-        get_state=get_state,
-        diagnostics=lambda c: {"zsort_invalid": c.invalid},
-        step_fast=lambda c: _step(c, False),
-        run_fast=run_fast if fused_viable else None,
-        run_sample=run_sample if fused_viable else None,
-    )
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class PencilCarry:
-    """Slot-layout carry for the structured large-N engine: each array is
-    (8, n_slots). Rows 0..2 = x/y/z; in ``r``, row 3 = slot validity (1/0)
-    and row 4 = particle id (identity survives rebin permutations — frames,
-    MSD, and get_state need it). ``r_ref`` holds positions at the last rebin
-    for the skin/2 displacement criterion; ``overflow`` is sticky."""
-
-    r: jax.Array
-    ru: jax.Array
-    v: jax.Array
-    a: jax.Array
-    r_ref: jax.Array
-    counts: jax.Array
-    win_a: jax.Array
-    win_b: jax.Array
-    use_b: jax.Array
-    rc: jax.Array
-    vc: jax.Array
-    overflow: jax.Array
-    # Occupancy-width visit lists for the width-listed fused kernel
-    # (ops/pallas_pencil_fused.build_width_lists); (1,) int32 dummies when
-    # width_lists is off. Rebuilt wherever counts are (init + every rebin).
-    wl_self: jax.Array
-    wl_self_cnt: jax.Array
-    wl_nbr_i: jax.Array
-    wl_nbr_j: jax.Array
-    wl_nbr_off: jax.Array
-
-
-def _cellpair_engine(
-    cfg: SimConfig,
-    interpret: bool | None = None,
-    z_band: bool = False,
-    half_shell: bool = True,
-    compensated: bool | None = None,
-    mxu_reduce: bool = False,
-    rebin_trigger: str | None = None,
-    use_fused: bool | None = None,
-    width_lists: bool | None = None,
-    mono: bool | None = None,
-    inner_chunk: int | None = None,
-) -> Engine:
-    """Structured pencil-sweep backend for large N (SURVEY §5.7): pair work
-    O(N * 9 * capacity) with purely block-structured memory access; rebinning
-    (an argsort + scatter) happens only when a particle moved more than
-    skin/2, under lax.cond.
-
-    ``half_shell=True`` (default): pair-once sweep — self-pencil triangular
-    plus 4 upper xy-neighbors, reaction outputs reduced via shift-permutation
-    block maps (ops/pallas_pencil2.py); ~2x less pair math than the full
-    9-neighbor sweep. Incompatible with z_band (which implies the full
-    sweep).
-
-    ``width_lists=True`` (fused path only): occupancy-width visit lists —
-    every fused-kernel sweep visit runs at the pencil's 128-granular
-    ACTIVE width (ceil(count/128) blocks) instead of the static capacity,
-    cutting the sentinel-padding fraction of the pair math. Lists rebuild
-    wherever counts do (init + rebins). See
-    ops/pallas_pencil_fused.build_width_lists.
-
-    ``z_band=True`` (EXPERIMENTAL, default off): ranks within a pencil are
-    z-sorted, and each (i-slice, neighbor) computes only the rank windows
-    whose bin-time z lies within rc+skin of the slice (tables from
-    ``compute_z_windows``, recomputed at every rebin; PBC-wrap spillover
-    handled by a deduped second window; the sticky ``overflow`` flag then
-    also covers window overflow — if set, results are INVALID). Measured on
-    v5e at N=62500 it currently LOSES (11.3 vs 7.3 ms/step): the 128-lane
-    alignment slack inflates the window to ~75% of capacity and the dynamic
-    slices defeat Mosaic pipelining. Exact-parity verified; kept for
-    taller-box regimes and future tuning (smaller TILE_I)."""
-    from ljmd_tpu.ops.cell_list import (
-        bin_to_slots,
-        compute_z_windows,
-        default_z_window,
-        make_pencil_grid,
-        rebin_gather_parts,
-    )
-    from ljmd_tpu.ops.pallas_pencil import (
-        TILE_I,
-        build_tile_table,
-        pallas_pencil_sweep,
-        pallas_pencil_sweep_zband,
-    )
-    from ljmd_tpu.ops.pallas_pencil2 import (
-        build_half_shell_tables,
-        pallas_pencil_sweep_hs,
-        pallas_pencil_sweep_mono,
-        pencil_mono_viable,
-        sentinel_fill,
-    )
-    from ljmd_tpu.ops.pallas_fused import wrap_positions_ext
-    from ljmd_tpu.ops.pallas_pencil_fused import (
-        build_width_lists,
-        fused_pencil_chunk,
-        fused_pencil_width_chunk,
-        pencil_fused_viable,
-    )
-
-    if interpret is None:
-        try:
-            interpret = jax.devices()[0].platform != "tpu"
-        except Exception:  # pragma: no cover
-            interpret = True
-
-    L = cfg.box_length
-    if L <= 1.0:
-        raise ValueError("cellpair engine requires L > 1 (aux-row wrap invariant)")
-    skin = cfg.neighbor_skin
-    r_list = cfg.rc + skin
-    grid = make_pencil_grid(cfg.n, L, r_list, cfg.density, cfg.neighbor_capacity)
-    tile_table = jnp.asarray(build_tile_table(grid))
-    n = cfg.n
-    ns = grid.n_slots
-    dtype = _effective_dtype(cfg)
-    window = default_z_window(grid, n, r_list, TILE_I)
-    if window >= grid.capacity:
-        z_band = False  # banding degenerates to the full sweep
-    if z_band:
-        half_shell = False  # banding implies the full 9-neighbor sweep
-    n_tables = (ns // TILE_I) * 9
-    hs_tbl_np, hs_shf_np = build_half_shell_tables(grid)
-    hs_tbl = jnp.asarray(hs_tbl_np)
-    hs_shf = jnp.asarray(hs_shf_np)
-
-    e_t, d_t, dd_t = (
-        tail_corrections(n, cfg.volume, cfg.rc)
-        if cfg.use_tail_corrections
-        else (0.0, 0.0, 0.0)
-    )
-    row_mask = jnp.zeros((8, 1), dtype).at[0:3].set(1.0)   # keep only forces
-    xyz_mask = row_mask                                    # zero deltas on aux rows
-    # Same compensation policy as the rows engine: f32 at small dt loses the
-    # velocity-increment bits without it. (Override param exists for parity
-    # tests that force the compensated code path in f64 interpret mode.)
-    if compensated is None:
-        compensated = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == jnp.float32
-    if rebin_trigger not in ("always", "predictive", "never", None):
-        raise ValueError(f"unknown rebin trigger {rebin_trigger!r}")
-    def _mono_strips():
-        """x-strip plan for the single-program sweep: the half-shell
-        neighborhood only reaches x-rows r and r+1, so the sweep splits
-        into consecutive-row strips (i-rows plus ONE halo row each) that
-        fit the mono VMEM budget, merged by adding the halo overlaps.
-        Returns a list of strip dicts (len 1 = whole-grid mono, no halo),
-        or None when even 1-row strips don't fit or the glue would grow
-        past ~6 strips (grid-kernel fallback)."""
-        if not half_shell or z_band:
-            return None
-        m = grid.m_xy
-        cap = grid.capacity
-        item = jnp.dtype(dtype).itemsize
-        if pencil_mono_viable(ns, item):
-            return [dict(r0=0, r1=m, n_i=grid.n_pencils,
-                         tbl=hs_tbl, shf=hs_shf)]
-        import numpy as _np
-
-        for k in range(2, 7):
-            rows = -(-m // k)
-            if not pencil_mono_viable((rows + 1) * m * cap, item):
-                continue
-            plan = []
-            r0 = 0
-            while r0 < m:
-                r1 = min(m, r0 + rows)
-                n_i = (r1 - r0) * m
-                halo_row = r1 % m
-                tbl_l = _np.empty(n_i * 4, _np.int32)
-                for q in range(n_i):
-                    p = r0 * m + q
-                    for kk in range(4):
-                        j = int(hs_tbl_np[p * 4 + kk])
-                        row = j // m
-                        if r0 <= row < r1:
-                            tbl_l[q * 4 + kk] = j - r0 * m
-                        else:
-                            assert row == halo_row, (p, j, r0, r1)
-                            tbl_l[q * 4 + kk] = n_i + (j % m)
-                shf_l = hs_shf_np[r0 * m * 8:r1 * m * 8]
-                plan.append(dict(r0=r0, r1=r1, n_i=n_i,
-                                 tbl=jnp.asarray(tbl_l),
-                                 shf=jnp.asarray(shf_l)))
-                r0 = r1
-            return plan
-        return None
-
-    _strip_plan = _mono_strips()
-    mono_ok = _strip_plan is not None
-    if mono is None:
-        # Multi-strip (len(plan) > 1) is TPU-validated (strips-vs-grid etot
-        # agreement 0 at N=256000, worst |dE/E| 3.6e-5 over the rebin+chunk
-        # graph, scripts/check_conservation.py 2026-08-19) but measured
-        # SLOWER than the grid kernel there (2.37e7 vs 2.61e7 ps/s,
-        # exp_mono256) — the per-strip halo re-sweep eats the mono win.
-        # Single-strip mono stays the default where it fits; grid otherwise.
-        mono = mono_ok and len(_strip_plan) == 1
-    elif mono and not mono_ok:
-        raise ValueError("mono sweep not viable for this config")
-    fused_ok = (
-        half_shell
-        and not z_band
-        and pencil_fused_viable(ns, jnp.dtype(dtype).itemsize,
-                                extended=compensated)
-    )
-    if use_fused is None:
-        use_fused = fused_ok
-    elif use_fused and not fused_ok:
-        raise ValueError("fused pencil path not viable for this config")
-    if width_lists is None:
-        # Measured (exp_width, 2026-08-18, v5e): list-driven visits pay
-        # ~0.28 us/visit of SMEM-driven dynamic-slice overhead where the
-        # static affine pencil loop pays ~0, so width lists only win when
-        # the 128-quantized occupancy leaves >= 1 whole block of harvest
-        # for MOST pencils. Mean-occupancy rule, matching the sign at all
-        # measured points: N=62500 c384 (fill 83%, w=3 everywhere) -40%;
-        # N=16384 (occ straddles 256, w 31/33 split) -9%; N=19652 (w=2
-        # for 67/81 pencils) +10%.
-        mean_occ = n / grid.n_pencils
-        width_lists = bool(
-            use_fused
-            and not mxu_reduce
-            and (int(mean_occ + 8.0) + 127) // 128 < grid.capacity // 128
-        )
-    if width_lists:
-        if not use_fused:
-            raise ValueError("width_lists requires the fused pencil path")
-        if mxu_reduce:
-            raise ValueError("width_lists does not support mxu_reduce")
-
-    def sweep(pos, counts, wins, want_obs=True):
-        if z_band:
-            return pallas_pencil_sweep_zband(
-                pos, tile_table, counts, wins[0], wins[1], wins[2],
-                grid, cfg.rc_square, window,
-                interpret=interpret, want_observables=want_obs,
-            )
-        if half_shell:
-            if mono and len(_strip_plan) == 1:
-                # Single program, whole state in VMEM: no per-program
-                # block-DMA/prologue cost (~2.5us x n_pencils with the
-                # grid kernel) and no 5-buffer reaction reduction after.
-                out = pallas_pencil_sweep_mono(
-                    pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square,
-                    interpret=interpret, want_observables=want_obs,
-                    approx_reciprocal=True,
-                )
-            elif mono:
-                # x-strip mono: sequential strip sweeps (i-rows + one halo
-                # row each in VMEM), halo reactions merged by overlap adds.
-                m = grid.m_xy
-                cap_s = grid.capacity
-                row_slots = m * cap_s
-                out = jnp.zeros((8, ns), pos.dtype)
-                for sp in _strip_plan:
-                    r0, r1, n_i = sp["r0"], sp["r1"], sp["n_i"]
-                    lo = r0 * row_slots
-                    hi = r1 * row_slots
-                    if r1 < m:
-                        pos_l = pos[:, lo:hi + row_slots]
-                    else:
-                        pos_l = jnp.concatenate(
-                            [pos[:, lo:], pos[:, :row_slots]], axis=1
-                        )
-                    out_l = pallas_pencil_sweep_mono(
-                        pos_l, sp["tbl"], counts[r0 * m:r1 * m], sp["shf"],
-                        grid, cfg.rc_square, interpret=interpret,
-                        want_observables=want_obs, approx_reciprocal=True,
-                        n_pencils_i=n_i,
-                    )
-                    if r1 < m:
-                        out = out.at[:, lo:hi + row_slots].add(out_l)
-                    else:
-                        out = out.at[:, lo:].add(out_l[:, :n_i * cap_s])
-                        out = out.at[:, :row_slots].add(
-                            out_l[:, n_i * cap_s:]
-                        )
-            else:
-                out = pallas_pencil_sweep_hs(
-                    pos, hs_tbl, counts, hs_shf, grid, cfg.rc_square,
-                    interpret=interpret, want_observables=want_obs,
-                    approx_reciprocal=True,
-                )
-            # Sentinel-sentinel artifacts land only on invalid slots; one
-            # multiply by the validity row (r row 3) cleans output + obs.
-            return out * pos[3:4, :]
-        return pallas_pencil_sweep(
-            pos, tile_table, counts, grid, cfg.rc_square,
-            tile_i=TILE_I, interpret=interpret, want_observables=want_obs,
-            approx_reciprocal=True,
-        )
-
-    def _windows(r8, valid, counts):
-        if not z_band:
-            zero = jnp.zeros((n_tables,), jnp.int32)
-            return (zero, zero, zero), jnp.asarray(False)
-        wa, wb, ub, ovf = compute_z_windows(
-            r8, valid, counts, grid, window, r_list, TILE_I
-        )
-        return (wa, wb, ub), ovf
-
-    def _counts_from_valid(valid):
-        return (
-            valid.reshape(grid.n_pencils, grid.capacity)
-            .sum(axis=1)
-            .astype(jnp.int32)
-        )
-
-    def _lists_from_counts(counts):
-        """Occupancy-width visit lists for the width-listed fused kernel;
-        (1,) dummies keep the carry pytree static when the mode is off."""
-        if not width_lists:
-            z = jnp.zeros((1,), jnp.int32)
-            return z, z, z, z, z
-        return build_width_lists(
-            counts, hs_tbl, hs_shf, grid.n_pencils, grid.capacity
-        )
-
-    def _permute_rebin(r8, others, order, src, valid_new):
-        """Gather-form slot permutation. The old scatter form
-        (``.at[:, new_slot].set``) pays XLA's scatter lowering, which blows
-        up super-linearly on v5e (exp_permute, 2026-08-18: 2.1 ms at
-        ns=185k but 14.8-18 ms at ns=372k, row-count-insensitive) while the
-        equivalent gather stays ~linear (0.5 / 1.8 ms). Gathers ONLY the
-        data-carrying rows — r8 rows 0..2 (coords) + row 4 (ids), 3 rows of
-        each other array; row 3 (validity) is rebuilt from ``valid_new``
-        and rows 5..7 are identically zero throughout the engine.
-
-        The permutation is applied as TWO gathers — sorted order first,
-        then the near-sequential structured ``src`` — instead of one
-        composed ``old_of_new`` gather: cheaper on v5e
-        (exp_r5_rebin_attrib 2026-08-20, see rebin_gather_parts).
-
-        Overflow victims (per-pencil rank >= capacity) are simply not
-        covered by any target slot — dropped deterministically, with the
-        sticky overflow diagnostic set by ``rebin_gather_parts``."""
-        vmask = valid_new.astype(dtype)
-        parts = [r8[0:3], r8[4:5]] + [o[0:3] for o in others]
-        stacked = jnp.concatenate(parts, axis=0)[:, order][:, src] * vmask[None, :]
-        pad3 = jnp.zeros((3, ns), dtype)
-        pad5 = jnp.zeros((5, ns), dtype)
-        r8p = jnp.concatenate(
-            [stacked[0:3], vmask[None, :], stacked[3:4], pad3], axis=0
-        )
-        outs = [
-            jnp.concatenate([stacked[4 + 3 * i:7 + 3 * i], pad5], axis=0)
-            for i in range(len(others))
-        ]
-        return r8p, outs
-
-    # Half-shell sweeps count each pair ONCE (prefactors 4/24, like the
-    # dense triangular kernel); the full 9-neighbor sweep counts twice.
-    e_pref, d_pref = (4.0, 24.0) if half_shell else (2.0, 12.0)
-
-    def obs_from(out, ekin):
-        return StepObs(
-            epot=e_pref * jnp.sum(out[3]) + jnp.asarray(e_t, dtype),
-            ekin=ekin,
-            d_epot=d_pref * jnp.sum(out[4]) + jnp.asarray(d_t, dtype),
-            dd_epot=d_pref * jnp.sum(out[5]) + jnp.asarray(dd_t, dtype),
-        )
-
-    def _scatter_rows(arr_particles: jax.Array, slot: jax.Array) -> jax.Array:
-        out = jnp.zeros((8, ns + 1), dtype)
-        out = out.at[0:3, slot].set(arr_particles.T.astype(dtype),
-                                    unique_indices=True)
-        return out[:, :ns]
-
-    def init(state: MDState):
-        slot, overflow = bin_to_slots(state.r, grid)
-        r8 = _scatter_rows(state.r, slot)
-        valid = jnp.zeros((ns + 1,), dtype).at[slot].set(
-            1.0, unique_indices=True)[:ns]
-        ids = jnp.full((ns + 1,), 0.0, dtype).at[slot].set(
-            jnp.arange(n, dtype=dtype), unique_indices=True
-        )[:ns]
-        r8 = r8.at[3, :].set(valid).at[4, :].set(ids)
-        r8 = sentinel_fill(r8, valid, grid.capacity)
-        ru8 = _scatter_rows(state.ru, slot)
-        v8 = _scatter_rows(state.v, slot)
-        counts = _counts_from_valid(valid)
-        wins, w_ovf = _windows(r8, valid, counts)
-        wl = _lists_from_counts(counts)
-        out = sweep(r8, counts, wins)
-        a8 = 24.0 * out * row_mask
-        ekin = 0.5 * jnp.sum(v8 * v8)
-        zero = jnp.zeros_like(r8)
-        carry = PencilCarry(
-            r=r8, ru=ru8, v=v8, a=a8, r_ref=r8, counts=counts,
-            win_a=wins[0], win_b=wins[1], use_b=wins[2],
-            rc=zero, vc=zero,
-            overflow=overflow | w_ovf,
-            wl_self=wl[0], wl_self_cnt=wl[1],
-            wl_nbr_i=wl[2], wl_nbr_j=wl[3], wl_nbr_off=wl[4],
-        )
-        return carry, obs_from(out, ekin)
-
-    dt = cfg.dt
-    half_dt = 0.5 * cfg.dt
-    half_dt_sq = 0.5 * cfg.dt * cfg.dt
-    # GEOMETRIC bin-validity slack (round-5 rebin-bill work): coverage of the
-    # 9-pencil xy neighborhood only requires rc + 2*delta_xy <= pencil_width,
-    # i.e. per-particle XY drift below (width - rc)/2 — z is unrestricted
-    # (the sweeps cover full z columns; sentinels + MIC handle z drift).
-    # pencil_width = L / floor(L / (rc + skin)) >= rc + skin, so this slack
-    # is at least the configured skin and typically much larger (131k:
-    # skin 0.49 -> 0.245 old thresh vs geometric 0.331, and the drift that
-    # counts is now the ~sqrt(2/3)-smaller XY projection). The z-band path
-    # keeps the conservative 3D check (its z windows assume bounded z drift).
-    skin_xy = grid.pencil_width - cfg.rc
-    if z_band:
-        rebuild_thresh = (0.5 * skin) ** 2
-        _drift_rows = slice(0, 3)
-    else:
-        rebuild_thresh = (0.5 * skin_xy) ** 2
-        _drift_rows = slice(0, 2)
-
-    def _step(c: PencilCarry, want_obs: bool, rebin: bool = True):
-        # Position update on xyz rows only (aux rows 3/4 of r stay intact).
-        # NO per-step wrap: slot coordinates may drift up to skin/2 outside
-        # [0, L) between rebins. This keeps xi - xj_shifted free of L-jumps,
-        # which the static xy image-shift tables of the pencil kernel rely
-        # on; wrapping happens at rebin (and in get_state).
-        delta = (c.v * dt + c.a * half_dt_sq) * xyz_mask
-        if compensated:
-            r_new, rc_new = _comp_add(c.r, c.rc, delta)
-            v_half, vc_half = _comp_add(c.v, c.vc, c.a * half_dt)
-        else:
-            r_new = c.r + delta
-            rc_new = c.rc
-            v_half, vc_half = c.v + c.a * half_dt, c.vc
-        ru_new = c.ru + delta
-
-        if not rebin:
-            # Chunked driver (run_fast_unfused) owns the rebin decision at
-            # chunk granularity — skip the per-step displacement check and
-            # the lax.cond entirely (its branch/copy overhead at large ns
-            # is what the chunking removes; see exp_pencil_bill).
-            out = sweep(r_new, c.counts, (c.win_a, c.win_b, c.use_b),
-                        want_obs)
-            a_new = 24.0 * out * row_mask
-            if compensated:
-                v_new, vc_new = _comp_add(v_half, vc_half, a_new * half_dt)
-                v_eff = v_new + vc_new
-            else:
-                v_new, vc_new = v_half + a_new * half_dt, vc_half
-                v_eff = v_new
-            ekin = 0.5 * jnp.sum(v_eff * v_eff)
-            carry = dataclasses.replace(
-                c, r=r_new, ru=ru_new, v=v_new, a=a_new,
-                rc=rc_new, vc=vc_new,
-            )
-            return carry, obs_from(out, ekin)
-
-        if rebin == "force":
-            moved = None  # unconditional rebin (no cond, no copy overhead)
-        else:
-            d = minimum_image(r_new[_drift_rows] - c.r_ref[_drift_rows], L)
-            moved = jnp.max(jnp.sum(d * d, axis=0) * r_new[3]) > rebuild_thresh
-
-        def do_rebin(args):
-            r8, ru8, v8, rc8, vc8 = args
-            # wrap back into [0, L) before re-binning (pencil ids clip).
-            # In compensated mode the wrap is the TWO-FLOAT wrap: the
-            # subtraction's rounding error folds into the position
-            # compensation rows, which then permute with the slots —
-            # rebins no longer erode the extended precision (they used
-            # to reset rc, which is what kept the branchless always-
-            # rebin policy off the compensated path).
-            if compensated:
-                rhi, rlo = wrap_positions_ext(r8[0:3], rc8[0:3], L)
-                r8 = r8.at[0:3].set(rhi)
-                rc8 = rc8.at[0:3].set(rlo)
-            else:
-                r8 = r8.at[0:3].set(wrap_positions(r8[0:3], L))
-            order, src, valid_new, overflow = rebin_gather_parts(
-                r8, r8[3, :], grid, z_order=z_band
-            )
-            others = [ru8, v8] + ([rc8, vc8] if compensated else [])
-            r8p, permuted = _permute_rebin(r8, others, order, src, valid_new)
-            r8p = sentinel_fill(r8p, r8p[3, :], grid.capacity)
-            counts_p = _counts_from_valid(r8p[3, :])
-            wins_p, w_ovf = _windows(r8p, r8p[3, :], counts_p)
-            return (
-                r8p, permuted[0], permuted[1],
-                permuted[2] if compensated else jnp.zeros_like(r8p),
-                permuted[3] if compensated else vc8,
-                r8p, counts_p,
-                wins_p[0], wins_p[1], wins_p[2], overflow | w_ovf,
-                _lists_from_counts(counts_p),
-            )
-
-        def no_rebin(args):
-            r8, ru8, v8, rc8, vc8 = args
-            return (
-                r8, ru8, v8, rc8, vc8, c.r_ref, c.counts,
-                c.win_a, c.win_b, c.use_b, jnp.asarray(False),
-                (c.wl_self, c.wl_self_cnt, c.wl_nbr_i, c.wl_nbr_j,
-                 c.wl_nbr_off),
-            )
-
-        args = (r_new, ru_new, v_half, rc_new, vc_half)
-        if rebin == "force":
-            outs = do_rebin(args)
-        else:
-            outs = lax.cond(moved, do_rebin, no_rebin, args)
-        r_new, ru_new, v_half, rc_new, vc_half, r_ref, counts, wa, wb, ub, ovf, wl = outs
-
-        out = sweep(r_new, counts, (wa, wb, ub), want_obs)
-        a_new = 24.0 * out * row_mask
-        if compensated:
-            v_new, vc_new = _comp_add(v_half, vc_half, a_new * half_dt)
-            v_eff = v_new + vc_new
-        else:
-            v_new, vc_new = v_half + a_new * half_dt, vc_half
-            v_eff = v_new
-        ekin = 0.5 * jnp.sum(v_eff * v_eff)
-        carry = PencilCarry(
-            r=r_new, ru=ru_new, v=v_new, a=a_new, r_ref=r_ref, counts=counts,
-            win_a=wa, win_b=wb, use_b=ub, rc=rc_new, vc=vc_new,
-            overflow=c.overflow | ovf,
-            wl_self=wl[0], wl_self_cnt=wl[1],
-            wl_nbr_i=wl[2], wl_nbr_j=wl[3], wl_nbr_off=wl[4],
-        )
-        return carry, obs_from(out, ekin)
-
-    def step(c: PencilCarry):
-        return _step(c, True)
-
-    def step_fast(c: PencilCarry):
-        return _step(c, False)
-
-    # ---- fused multi-step path (run_fast) ----------------------------------
-    # Rebin checks move from per-step to per-chunk. A static tightened
-    # threshold wastes rebins (the displacement tail at N~6e4 crosses any
-    # usable margin every chunk), so the trigger is PREDICTIVE per particle:
-    # rebin when max_i(|d_i| + |v_i| * k * dt * safety) would cross skin/2
-    # during the coming chunk. A displacement past skin/2 observed at a
-    # check sets the sticky overflow flag (possible missed pairs during the
-    # last chunk) — the zsort engine's honesty pattern.
-    chunk_invalid_thresh = rebuild_thresh  # geometric xy slack (non-z_band)
-    _PREDICT_SAFETY = 1.25
-
-    def _rebin_carry(c: PencilCarry) -> PencilCarry:
-        # a rides along (the next chunk's first half-kick uses it). In
-        # compensated mode the wrap is the two-float wrap and rc permutes
-        # with the slots (see do_rebin) — rebins preserve the extended
-        # precision.
-        if compensated:
-            rhi, rlo = wrap_positions_ext(c.r[0:3], c.rc[0:3], L)
-            r8 = c.r.at[0:3].set(rhi)
-            rc8 = c.rc.at[0:3].set(rlo)
-        else:
-            r8 = c.r.at[0:3].set(wrap_positions(c.r[0:3], L))
-            rc8 = c.rc
-        order, src, valid_new, b_ovf = rebin_gather_parts(
-            r8, r8[3, :], grid, z_order=z_band
-        )
-        others = [c.ru, c.v, c.a] + ([rc8, c.vc] if compensated else [])
-        r8p, permuted = _permute_rebin(r8, others, order, src, valid_new)
-        r8p = sentinel_fill(r8p, r8p[3, :], grid.capacity)
-        counts_p = _counts_from_valid(r8p[3, :])
-        wins_p, w_ovf = _windows(r8p, r8p[3, :], counts_p)
-        wl = _lists_from_counts(counts_p)
-        return dataclasses.replace(
-            c, r=r8p, ru=permuted[0], v=permuted[1], a=permuted[2],
-            rc=permuted[3] if compensated else jnp.zeros_like(r8p),
-            vc=permuted[4] if compensated else c.vc,
-            r_ref=r8p, counts=counts_p,
-            win_a=wins_p[0], win_b=wins_p[1], use_b=wins_p[2],
-            overflow=c.overflow | b_ovf | w_ovf,
-            wl_self=wl[0], wl_self_cnt=wl[1],
-            wl_nbr_i=wl[2], wl_nbr_j=wl[3], wl_nbr_off=wl[4],
-        )
-
-    def _invalid_check(c: PencilCarry):
-        """Sticky-flag drift past the coverage slack since the last rebin
-        (possible missed pairs during the last chunk — the zsort engine's
-        honesty pattern). Returns (carry, moved2)."""
-        valid = c.r[3]
-        d = minimum_image(c.r[_drift_rows] - c.r_ref[_drift_rows], L)
-        moved2 = jnp.sum(d * d, axis=0) * valid
-        return dataclasses.replace(
-            c, overflow=c.overflow | (jnp.max(moved2) > chunk_invalid_thresh)
-        ), moved2
-
-    def _maybe_rebin(c: PencilCarry, k: int) -> PencilCarry:
-        valid = c.r[3]
-        c, moved2 = _invalid_check(c)
-        if rebin_trigger == "never":  # floor measurement only (UNSAFE)
-            return c
-        if rebin_trigger == "always":
-            return _rebin_carry(c)
-        speed = jnp.sqrt(jnp.sum(c.v[_drift_rows] * c.v[_drift_rows], axis=0))
-        predicted = jnp.sqrt(moved2) + speed * (k * dt * _PREDICT_SAFETY)
-        thresh = 0.5 * (skin if z_band else skin_xy)
-        will_exceed = jnp.max(predicted * valid) > thresh
-        return lax.cond(will_exceed, _rebin_carry, lambda cc: cc, c)
-
-    if inner_chunk is None:
-        # Unfused big-N chunks: 12 steps between rebins (exp_r5_rebin
-        # 2026-08-20, v5e): the geometric-xy slack covers 12-step drift at
-        # 1.53x margin (131k: 3.373e7 clean vs 3.246e7 at ck=8; ck=16's
-        # 3.438e7 TRIPS the sticky drift flag — margin 1.15x, tail crosses
-        # it). The fused path keeps 8 (its chunk is also the kernel's
-        # in-VMEM step loop; Mosaic compile scales with the trip count).
-        inner_chunk = 8 if use_fused else 12
-
-    def _run_chunk_kernel(c: PencilCarry, k: int):
-        ext = dict(r_lo=c.rc, vc=c.vc) if compensated else {}
-        if width_lists:
-            # Occupancy-width visit lists: same contracts, minus the
-            # sentinel-padding fraction of the pair math.
-            return fused_pencil_width_chunk(
-                c.r, c.v, c.a, c.wl_self, c.wl_self_cnt,
-                c.wl_nbr_i, c.wl_nbr_j, c.wl_nbr_off,
-                grid.n_pencils, grid.capacity, L, cfg.rc_square, dt, k,
-                interpret=interpret, approx_reciprocal=not interpret,
-                **ext,
-            )
-        return fused_pencil_chunk(
-            c.r, c.v, c.a, hs_tbl, hs_shf,
-            grid.n_pencils, grid.capacity, L, cfg.rc_square, dt, k,
-            interpret=interpret, approx_reciprocal=not interpret,
-            mxu_reduce=mxu_reduce, **ext,
-        )
-
-    def _chunk(c: PencilCarry, k: int) -> PencilCarry:
-        c = _maybe_rebin(c, k)
-        if compensated:
-            # Extended two-float fused kernel: the compensated policy keeps
-            # the fast path (VERDICT round-2 item 2) instead of dropping to
-            # the per-step sweep.
-            r_end, rc_end, v_new, vc_new, a_new = _run_chunk_kernel(c, k)
-            ru_new = c.ru + ((r_end - c.r) + (rc_end - c.rc)) * xyz_mask
-            return dataclasses.replace(
-                c, r=r_end, ru=ru_new, v=v_new, a=a_new, rc=rc_end, vc=vc_new
-            )
-        r_end, v_new, a_new = _run_chunk_kernel(c, k)
-        # No wrap inside the chunk -> the unwrap update is the exact
-        # slot-space displacement (rows 3/4 of r are untouched by the
-        # kernel, so the delta's aux rows are zero; mask for safety).
-        ru_new = c.ru + (r_end - c.r) * xyz_mask
-        return dataclasses.replace(c, r=r_end, ru=ru_new, v=v_new, a=a_new)
-
-    def run_fast(c: PencilCarry, n_steps: int) -> PencilCarry:
-        full, rem = divmod(n_steps, inner_chunk)
-        if full > 0:
-            c, _ = lax.scan(
-                lambda cc, _: (_chunk(cc, inner_chunk), None),
-                c, None, length=full,
-            )
-        if rem:
-            c = _chunk(c, rem)
-        return c
-
-    def run_fast_unfused(c: PencilCarry, n_steps: int) -> PencilCarry:
-        """Chunked per-step sweeps past the fused kernel's VMEM budget:
-        the rebin policy (_maybe_rebin, same trigger modes and invalid
-        accounting as the fused path) runs once per inner_chunk, and the
-        steps in between skip the displacement check + lax.cond whose
-        branch/copy overhead dominates at large ns (measured: the cond'd
-        per-step path ran N=131k at 2.5e7 ps/s against a much higher
-        no-rebin floor — exp_bign/exp_pencil_bill)."""
-        def chunk(cc: PencilCarry, k: int) -> PencilCarry:
-            # The k steps are UNROLLED (k <= inner_chunk, static): a
-            # lax.scan here, compiled into the same module as the rebin's
-            # gather pipeline, miscompiles on v5e — the scanned sweeps
-            # compute corrupted forces (energy injection ~ permutation
-            # distance; bisected at N=131072, docs/RESULTS.md
-            # "rebin+scan miscompile"). Straight-line steps measure clean.
-            start = 0
-            if rebin_trigger == "always":
-                # MID-STEP rebin (round-5 rebin-bill work): fold the
-                # unconditional rebin into step 1, after its position
-                # update + half-kick — the acceleration row never crosses
-                # the rebin, so the permute gathers 10 rows instead of 13
-                # (a_new comes from the post-rebin sweep).
-                cc, _m = _invalid_check(cc)
-                cc, _ob = _step(cc, False, rebin="force")
-                start = 1
-            else:
-                cc = _maybe_rebin(cc, k)
-            for _ in range(start, k):
-                cc, _ob = _step(cc, False, rebin=False)
-            return cc
-
-        full, rem = divmod(n_steps, inner_chunk)
-        if full > 0:
-            c, _ = lax.scan(
-                lambda cc, _: (chunk(cc, inner_chunk), None),
-                c, None, length=full,
-            )
-        if rem:
-            c = chunk(c, rem)
-        return c
-
-    if rebin_trigger is None:
-        # Plain f32: branchless rebin every chunk wins everywhere (N=62500
-        # fused: 1367 vs 1503 us/step — the lax.cond/copy overhead around
-        # the predictive trigger exceeds the extra rebins, exp_pencil_bill;
-        # 8-step travel 0.176 < skin/2 = 0.245 keeps bins valid at 1.39x
-        # margin). With the unstable packed rebin sort (exp_sort,
-        # 2026-08-18) this extends past the fused VMEM budget too: N=131k
-        # always 2.74e7 vs predictive 2.70e7, N=256k 2.30e7 vs 2.22e7
-        # (exp_bign re-run; before the sort fix predictive won there).
-        # Compensated mode keeps predictive: rebins wrap positions, and
-        # 4-8x more of them would erode the two-float accuracy margin for
-        # no speed gain at small dt.
-        rebin_trigger = "predictive" if compensated else "always"
-    # (rebin_trigger is read late-bound by _maybe_rebin/_step closures)
-
-    def get_state(c: PencilCarry) -> MDState:
-        """Slot layout -> particle order via the id row (positions wrapped
-        back into [0, L) — slot coordinates may drift slightly outside
-        between rebins)."""
-        valid = c.r[3, :] > 0.5
-        ids = jnp.where(valid, c.r[4, :].astype(jnp.int32), n)
-
-        def gather(arr):
-            out = jnp.zeros((n + 1, 3), dtype)
-            out = out.at[ids].set(arr[0:3, :].T, unique_indices=True)
-            return out[:n]
-
-        v8 = c.v + c.vc if compensated else c.v
-        return MDState(
-            r=wrap_positions(gather(c.r), L),
-            ru=gather(c.ru),
-            v=gather(v8),
-            a=gather(c.a),
-        )
-
-    return Engine(
-        init=init,
-        step=step,
-        get_state=get_state,
-        diagnostics=lambda c: {"pencil_overflow": c.overflow},
-        step_fast=step_fast,
-        run_fast=run_fast if use_fused else run_fast_unfused,
-    )
-
-
-def _cellpair_viable(cfg: SimConfig) -> bool:
-    import numpy as _np
-
-    return int(_np.floor(cfg.box_length / (cfg.rc + cfg.neighbor_skin))) >= 3
-
-
-def make_engine(cfg: SimConfig, backend: str = "auto", state=None,
-                sample_interval: int | None = None) -> Engine:
+def _pencil_viable(cfg: SimConfig) -> bool:
+    """The pencil grid needs >= 3 columns of width rc + skin per side."""
+    return cfg.box_length // (cfg.rc + cfg.neighbor_skin) >= 3
+
+
+def auto_backend(cfg: SimConfig) -> str:
+    """The engine ``auto`` picks: dense below 1024 particles or when the
+    neighbor radius does not fit the box, the neighbor list up to
+    ``PENCIL_MIN_N``, the pencil engine above it."""
+    r_list = cfg.rc + cfg.neighbor_skin
+    if cfg.n < 1024 or not r_list < 0.5 * cfg.box_length:
+        return "dense"
+    if cfg.n >= PENCIL_MIN_N and _pencil_viable(cfg):
+        return "cellpair"
+    # the list pays off only when the cutoff sphere is small next to the box
+    if estimate_capacity(cfg.density, r_list) < cfg.n // 8:
+        return "neighbor"
+    return "dense"
+
+
+def make_engine(cfg: SimConfig, backend: str = "auto", state=None) -> Engine:
     """Build the force/integration engine for ``cfg``.
-
-    ``sample_interval`` (optional): the driver's observable cadence
-    (``cfg.output_interval``). Dense sampling runs ``interval - 1`` fused
-    steps plus one observable step per cycle, and the zsort engine resorts
-    once per inner chunk — when ``interval - 1`` lands just past the
-    default inner_chunk (16), every sample cycle pays TWO resorts
-    (16 + tail). Aligning inner_chunk to the FULL ``interval``
-    (measured-safe ck band up to 24, exp_r4_retune: ck 20/24 cost only
-    ~1% continuous) makes it one resort per cycle, with the travel-bound
-    skin covering all ``interval`` steps between resorts (fused stretch +
-    the driver's obs step — the flag-window race rule). Measured at
-    config-4 scale (R=64 x N=864, interval=20, exp_ens_attrib2
-    2026-08-19): the 16+3 split cost ~37 us/bstep of the ~548 us/bstep
-    sampled floor.
 
     ``state`` (optional MDState): a representative configuration — e.g. the
     post-warmup state a production driver already holds. When the routing
     lands on the pencil engine and ``cfg.neighbor_capacity`` is unset, the
     pencil capacity is sized from this state's occupancy census
-    (``capacity_from_state``) instead of the lattice-based bound. Measured
-    on v5e (exp_autocap, 2026-08-18): NEUTRAL at the equilibrated LJ bench
-    points — the fluid occupancy tail is wide enough (N=131072: mean 453,
-    max >= 497) that the census lands on the same capacity as the default
-    — but it right-sizes non-FCC inits and other state points, and it
-    documents the honest floor (the popular neighbor_capacity=384 override
-    at N=62500 sits BELOW the census 512, i.e. on the overflow edge).
-    Occupancy drift past a tightened capacity trips the engines' sticky
-    overflow diagnostic — detected, never silent.
+    (``capacity_from_state``) instead of the lattice-based bound, which
+    must cover the FCC starting lattice's pencil aliasing. Occupancy drift
+    past the census capacity trips the engine's sticky overflow diagnostic —
+    detected, never silent.
     """
-    def _cellpair_tuned(c: SimConfig) -> Engine:
-        # The census needs CONCRETE positions: under a trace (e.g. the
-        # vmapped ensemble calls run_production on tracer states) fall
-        # back to the lattice-based default rather than crashing on
-        # np.asarray(tracer).
-        if (
-            state is not None
-            and not c.neighbor_capacity
-            and not isinstance(state.r, jax.core.Tracer)
-        ):
-            from ljmd_tpu.ops.cell_list import capacity_from_state
-
-            cap = capacity_from_state(
-                c.box_length, c.rc + c.neighbor_skin, state.r
-            )
-            c = dataclasses.replace(c, neighbor_capacity=cap)
-        return _cellpair_engine(c)
-
-    # Sampling-aligned inner chunk (see docstring). ck = the FULL interval,
-    # not interval-1: each sample cycle runs interval-1 fused steps PLUS
-    # the driver's observable step before the next resort, and the
-    # travel-bound skin must cover every step since the last resort (the
-    # flag-window race rule: gap >= 1.15x the between-resort travel).
-    # run_fast(interval-1) is then a single remainder chunk. Only the
-    # measured-safe ck band; outside it the default 16 stands
-    # (interval <= 17 is already a single remainder chunk per cycle,
-    # > 24 amortizes fine).
-    # (For interval = k*ck + 1 outside this band — e.g. 33 at ck=16 — the
-    # last chunk's resort covers ck+1 steps on a ck-sized bound, a ~10%
-    # thinner margin than the race rule asks; the engines' sticky
-    # 'invalid' diagnostic detects any actual violation, never silent.)
-    zs_kw = {}
-    if sample_interval is not None and 17 <= sample_interval <= 24:
-        zs_kw["inner_chunk"] = sample_interval
-
-    if backend == "neighbor":
-        return _neighbor_engine(cfg)
-    if backend == "pallas":
-        return _pallas_rows_engine(cfg)
-    if backend == "zsort":
-        return _zsort_engine(cfg, **zs_kw)
-    if backend == "cellpair":
-        return _cellpair_tuned(cfg)
     if backend == "auto":
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover
-            on_tpu = False
-        if on_tpu:
-            # Measured on v5e: XLA's dynamic gathers make the jnp neighbor
-            # path ~5x SLOWER than the dense Pallas sweep at N=4000, so on
-            # TPU the sorted window-list fused engine is the small/mid-N
-            # choice — pure z order below n~10000, (x-slab, z) lexicographic
-            # above (round-3 matrix, N=16384: 4.17e7 vs the pencil's
-            # 3.74e7 same-state ps/s) — and the structured pencil sweep
-            # takes over past the window-list SMEM cliff (n ~ 23k), where
-            # O(N*9*cap) work undercuts the z-window's O(N^2 * w/L).
-            n_pad128 = -(-cfg.n // 128) * 128
-            zsort_viable = (n_pad128 // 128) ** 2 <= 32768
-            if zsort_viable and cfg.box_length > 4.0 * cfg.rc:
-                # Compensated configs (f32 at dt <= 1e-3, the reference's
-                # own default regime) keep the fused path too: the list
-                # kernel's extended two-float mode (round-3) replaced the
-                # old fallback to the per-step rows sweep.
-                try:
-                    return _zsort_engine(cfg, **zs_kw)
-                except ValueError:
-                    pass
-            if cfg.n >= 8192 and _cellpair_viable(cfg):
-                return _cellpair_tuned(cfg)
-            if cfg.box_length > 4.0 * cfg.rc:
-                try:
-                    return _zsort_engine(cfg, **zs_kw)
-                except ValueError:
-                    pass
-            return _pallas_rows_engine(cfg)
-        elif _prefer_neighbor(cfg):
-            # CPU path: O(N*K) gathers beat the O(N^2) sweep handily.
-            return _neighbor_engine(cfg)
-    return _force_engine(cfg, backend)
+        backend = auto_backend(cfg)
+    if backend in ("dense", "neighbor"):
+        return _jnp_engine(cfg, backend)
+    if backend != "cellpair":
+        raise ValueError(
+            f"unknown backend {backend!r}; expected auto, dense, neighbor or cellpair"
+        )
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
+    # The census needs CONCRETE positions: under a trace (e.g. the vmapped
+    # ensemble calls run_production on tracer states) keep the lattice-based
+    # default rather than crashing on np.asarray(tracer).
+    if (
+        state is not None
+        and not cfg.neighbor_capacity
+        and not isinstance(state.r, jax.core.Tracer)
+    ):
+        from ljmd_tpu.ops.cell_list import capacity_from_state
 
-def _prefer_neighbor(cfg: SimConfig) -> bool:
-    """auto policy: neighbor lists pay off when the cutoff sphere is small
-    relative to the box (K << N) and the skin fits under L/2."""
-    r_list = cfg.rc + cfg.neighbor_skin
-    if not r_list < 0.5 * cfg.box_length:
-        return False
-    k_est = estimate_capacity(cfg.density, r_list)
-    return cfg.n >= 1024 and k_est < cfg.n // 8
+        cap = capacity_from_state(cfg.box_length, cfg.rc + cfg.neighbor_skin, state.r)
+        cfg = dataclasses.replace(cfg, neighbor_capacity=cap)
+    return make_pencil_engine(cfg)

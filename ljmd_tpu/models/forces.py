@@ -1,15 +1,15 @@
 """Force-backend dispatch.
 
-The framework has multiple implementations of the same LJ force/energy/virial
-contract (reference kernel ``lj_potential_energy.f90:46``):
+The framework has two stateless implementations of the same LJ
+force/energy/virial contract (reference kernel ``lj_potential_energy.f90:46``):
 
-- ``dense``    : all-pairs jnp sweep (``ops/lj.py``) — correctness oracle,
-                 CPU/small-N path.
-- ``pallas``   : tiled Pallas TPU kernel (``ops/pallas_lj.py``) — the
-                 performance path for mid-size N.
-- ``neighbor`` : cell-list / neighbor-tile kernel (``ops/neighbor.py``) for
-                 large N with short cutoffs.
-- ``auto``     : pick per platform and N.
+- ``dense``    : all-pairs jnp sweep (``ops/lj.py``) — the correctness
+                 oracle and the small-N path.
+- ``neighbor`` : Verlet-list gather kernel (``ops/neighbor.py``), built per
+                 call here; the production engine (``models/engine.py``)
+                 keeps the list in its carry instead.
+- ``auto``     : dense (the engines pick the neighbor list and the pencil
+                 sweep by N, ``models/engine.auto_backend``).
 
 Every backend returns an ``LJResult`` with identical semantics (including
 tail corrections), so integrators, drivers, and tests are backend-agnostic.
@@ -26,7 +26,7 @@ from ljmd_tpu.ops.lj import LJResult, lj_force_energy_dense
 
 __all__ = ["make_force_fn", "FORCE_BACKENDS"]
 
-FORCE_BACKENDS = ("auto", "dense", "pallas", "neighbor")
+FORCE_BACKENDS = ("auto", "dense", "neighbor")
 
 
 def _dense_fn(cfg: SimConfig) -> Callable[[jax.Array], LJResult]:
@@ -46,14 +46,6 @@ def _dense_fn(cfg: SimConfig) -> Callable[[jax.Array], LJResult]:
 def make_force_fn(cfg: SimConfig, backend: str = "auto") -> Callable[[jax.Array], LJResult]:
     if backend not in FORCE_BACKENDS:
         raise ValueError(f"unknown force backend {backend!r}; expected one of {FORCE_BACKENDS}")
-
-    if backend == "dense":
-        return _dense_fn(cfg)
-
-    if backend == "pallas":
-        from ljmd_tpu.ops.pallas_lj import make_pallas_force_fn
-
-        return make_pallas_force_fn(cfg)
 
     if backend == "neighbor":
         # Build-per-call neighbor force: correct but wasteful (the production
@@ -81,13 +73,4 @@ def make_force_fn(cfg: SimConfig, backend: str = "auto") -> Callable[[jax.Array]
 
         return neighbor_force
 
-    # auto: Pallas on TPU when N is big enough to tile; otherwise dense.
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:  # pragma: no cover - no backend at all
-        platform = "cpu"
-    if platform == "tpu" and cfg.n >= 512:
-        from ljmd_tpu.ops.pallas_lj import make_pallas_force_fn
-
-        return make_pallas_force_fn(cfg)
     return _dense_fn(cfg)

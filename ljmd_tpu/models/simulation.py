@@ -12,14 +12,14 @@ Rebuild of the reference's two Fortran programs:
   instantaneous series, trajectory frames, full-series + block-averaged
   autocorrelations, and thermodynamic coefficients.
 
-TPU-native design: the whole production run is ONE jitted computation — a
+Design: the whole production run is ONE jitted computation — a
 ``lax.scan`` over samples whose body is an inner ``lax.scan`` over the
 ``output_interval`` un-sampled steps, with the means accumulator carried on
 device (SURVEY §7 design mapping). Sampling cadence is reproduced exactly for
 any (total, warmup, interval) via a static prologue/epilogue step split, so
 sampled step indices match the reference's ``mod(step, interval) == 0`` rule
 even when ``warmup % interval != 0``. Trajectory frames are optional scan
-outputs (HBM-resident); large-N runs should instead use the chunked streaming
+outputs (device-resident); large-N runs should instead use the chunked streaming
 driver in ``ljmd_tpu/io/trajectory.py``.
 """
 
@@ -136,7 +136,7 @@ def _cadence(cfg: SimConfig):
 # Core scans
 # ----------------------------------------------------------------------
 def _advance(carry, step_fn, n_steps: int, dtype, fast_fn=None, want_obs=True,
-             run_fast=None, run_sample=None):
+             run_fast=None):
     """Advance n_steps (static), returning the final carry and the
     observables of the LAST step (carried, not materialized per step).
 
@@ -144,14 +144,11 @@ def _advance(carry, step_fn, n_steps: int, dtype, fast_fn=None, want_obs=True,
     n_steps-1 steps use it (the reference only consumes observables at the
     sampling step, md_simulation_program.f90:361); pass want_obs=False for
     fully-unsampled stretches (prologue/epilogue/warmup). When the engine
-    provides ``run_fast``, the un-sampled stretch runs in fused multi-step
-    kernels instead of a per-step scan; ``run_sample`` fuses the final
-    observable step into the last chunk too (no separate obs program)."""
+    provides ``run_fast``, the un-sampled stretch runs in its multi-step
+    chunks instead of a per-step scan."""
     dummy = StepObs(*(jnp.zeros((), dtype),) * 4)
     if n_steps == 0:
         return carry, dummy
-    if want_obs and run_sample is not None:
-        return run_sample(carry, n_steps)
     fast = fast_fn or step_fn
 
     def fast_body(c, _):
@@ -215,14 +212,9 @@ def initialize(
 
     if cfg.warmup_steps > 0:
         carry, _ = engine.init(state)
-        # The warmup advance must run under jit even when initialize() is
-        # called eagerly: an EAGER engine.run_fast dispatches each fused
-        # Pallas chunk as its own one-op module with layout-forcing operand
-        # copies, and at the VMEM-budget edge (N=62500 cap=384) that
-        # standalone compile OOMs scoped vmem by ~80KB while the identical
-        # kernel inside a jitted module compiles fine (scripts/
-        # exp_vmemprobe{,2}.py, 2026-08-18). Nested jit is free when the
-        # caller is already jitted (inlined).
+        # The warmup advance runs under jit even when initialize() is
+        # called eagerly: eager dispatch would run the scan's steps op by
+        # op. Nested jit is free when the caller is already jitted.
         warm = jax.jit(lambda c: _advance(
             c, engine.step, cfg.warmup_steps, dtype,
             fast_fn=engine.step_fast, want_obs=False, run_fast=engine.run_fast,
@@ -249,8 +241,7 @@ def run_production(
     """
     # State-aware pencil capacity: the post-warmup state sizes the slot
     # layout (make_engine docstring) — lattice-safe padding is for init.
-    engine = engine or make_engine(cfg, backend, state=state,
-                                   sample_interval=cfg.output_interval)
+    engine = engine or make_engine(cfg, backend, state=state)
     prologue, n_samples, epilogue = _cadence(cfg)
     if n_samples == 0:
         raise ValueError(
@@ -276,16 +267,14 @@ def run_production(
         ec, ob = _advance(
             ec, engine.step, cfg.output_interval, dtype,
             fast_fn=engine.step_fast, run_fast=engine.run_fast,
-            run_sample=engine.run_sample,
         )
         acc = means_update(acc, ob, cfg.n, cfg.volume)
         temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
         series = jnp.stack([ob.epot, ob.ekin, ob.epot + ob.ekin, temp, press])
         if record_frames:
-            # get_state only when frames are recorded: the pencil/zsort
-            # gathers behind it are an (n+1,3) scatter per array, and eager
-            # callers would execute them per sample for nothing (VERDICT
-            # round-3 item 6; under jit XLA DCEs the dead branch anyway).
+            # get_state only when frames are recorded: the pencil engine's
+            # is an (n+1,3) scatter per array, and eager callers would
+            # execute it per sample for nothing.
             st = engine.get_state(ec)
             ys = (series, (st.r, st.ru, st.v, st.a))
         else:
@@ -352,8 +341,7 @@ def _simulate_fn(cfg: SimConfig, backend: str, record_frames: bool):
     """Cached jitted init+production pipeline, keyed like the ensemble paths'
     ``_batched_ensemble_fn``/``_streaming_programs`` caches: a fresh
     ``jax.jit`` closure per ``simulate()`` call re-TRACES the whole pipeline
-    every invocation (VERDICT round-4 item 5 — the same cost class measured
-    at ~15-25 s/call for the ensemble programs on this 1-core host)."""
+    every invocation."""
     key = (cfg, backend, record_frames)
 
     def pipeline(k):

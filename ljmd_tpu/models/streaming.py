@@ -113,8 +113,7 @@ def run_production_streaming(
     # State-aware pencil capacity (make_engine docstring). Deterministic
     # across resume: the caller re-passes the same post-warmup state, so
     # the census — and hence the slot layout — is reproduced exactly.
-    engine = engine or make_engine(cfg, backend, state=state,
-                                   sample_interval=cfg.output_interval)
+    engine = engine or make_engine(cfg, backend, state=state)
     prologue, n_samples, epilogue = _cadence(cfg)
     if n_samples == 0:
         raise ValueError("no samples would be taken")
@@ -130,9 +129,7 @@ def run_production_streaming(
         series_done = np.zeros((5, 0), dtype=np.float64)
         ecarry, _ = engine.init(state)
         if prologue:
-            # jit: an eager run_fast dispatches each fused chunk standalone,
-            # which OOMs scoped vmem at the budget edge (see
-            # models/simulation.initialize and scripts/exp_vmemprobe2.py).
+            # jit: eager dispatch would run the prologue op by op.
             ecarry = jax.jit(lambda c: _advance(
                 c, engine.step, prologue, dtype,
                 fast_fn=engine.step_fast, want_obs=False, run_fast=engine.run_fast,
@@ -145,7 +142,6 @@ def run_production_streaming(
             ec_, ob = _advance(
                 ec_, engine.step, cfg.output_interval, dtype,
                 fast_fn=engine.step_fast, run_fast=engine.run_fast,
-                run_sample=engine.run_sample,
             )
             acc_ = means_update(acc_, ob, cfg.n, cfg.volume)
             temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)

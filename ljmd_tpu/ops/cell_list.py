@@ -1,21 +1,19 @@
 """Pencil (cell-column) spatial binning for the structured large-N kernel.
 
 The reference has no spatial data structures at all (pure O(N^2) loop,
-SURVEY §5.7). TPU-native scaling choice: random-access neighbor gathers are
-slow on TPU (measured ~5x slower than the dense sweep at N=4000), so instead
-of a gather-based neighbor list the large-N path re-ARRANGES particles into
-fixed-capacity "pencils" — z-columns of cross-section >= rc + skin — and the
-Pallas kernel sweeps each pencil only against its 9 xy-neighbor pencils with
-STATIC block indices (scalar-prefetched table). All hot-loop memory access is
-dense block reads; the only dynamic permutation happens at rebuild time.
+SURVEY §5.7). The large-N path re-ARRANGES particles into fixed-capacity
+"pencils" — z-columns of cross-section >= rc + skin — and sweeps each pencil
+only against its xy-neighbor pencils (``parallel/spatial_pencil.py``). Its
+memory is O(N), where the neighbor-list build's is O(N^2); the only dynamic
+permutation happens at rebuild time.
 
 Geometry: Mxy = floor(L / (rc + skin)) pencils per side (must be >= 3, else
 fall back to the dense kernel); pencil id p = ix * Mxy + iy; each pencil owns
-``capacity`` slots (multiple of 128 for lane alignment). A particle in
-pencil p with rank k occupies global slot p * capacity + k. Interactions
-beyond the 9-pencil xy-neighborhood are geometrically impossible within
-rc + skin; z stays unrestricted (the MIC cutoff mask handles it), which
-costs extra masked lanes but keeps every memory access block-structured.
+``capacity`` slots (a multiple of 128). A particle in pencil p with rank k
+occupies global slot p * capacity + k. Interactions beyond the 9-pencil
+xy-neighborhood are geometrically impossible within rc + skin; z stays
+unrestricted (the MIC cutoff mask handles it), which costs extra masked
+pairs but keeps every memory access block-structured.
 """
 
 from __future__ import annotations
@@ -35,14 +33,12 @@ __all__ = [
     "rebin_slots",
     "rebin_gather",
     "rebin_gather_parts",
-    "default_z_window",
-    "compute_z_windows",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class PencilGrid:
-    """Static pencil geometry + neighbor tables (host-side constants)."""
+    """Static pencil geometry (host-side constants)."""
 
     m_xy: int           # pencils per box side
     capacity: int       # slots per pencil (multiple of 128)
@@ -60,33 +56,15 @@ class PencilGrid:
     def pencil_width(self) -> float:
         return self.box_length / self.m_xy
 
-    def neighbor_table(self) -> np.ndarray:
-        """(n_pencils, 9) int32: the xy-neighbor pencil ids (incl. self),
-        PBC-wrapped. Static geometry."""
-        m = self.m_xy
-        tbl = np.empty((m * m, 9), dtype=np.int32)
-        for ix in range(m):
-            for iy in range(m):
-                p = ix * m + iy
-                k = 0
-                for dx in (-1, 0, 1):
-                    for dy in (-1, 0, 1):
-                        tbl[p, k] = ((ix + dx) % m) * m + (iy + dy) % m
-                        k += 1
-        return tbl
-
 
 def pencil_capacity(n: int, density: float, box_length: float, m_xy: int,
                     safety: float = 1.4) -> int:
-    """Static per-pencil slot capacity, rounded up to a multiple of 128
-    (lane alignment).
+    """Static per-pencil slot capacity, rounded up to a multiple of 128.
 
     The margin above mean occupancy is fluctuation-driven: grand-canonical
     particle-number fluctuations in a cell scale like sqrt(S(0) * mean) with
     S(0) << 1 in a dense liquid, so even a Poisson-scale margin
-    (~sqrt(mean)) is generous. For LARGE pencils the old flat 1.4x safety
-    wasted a full 128-lane block of the j sweep (e.g. mean 319 -> cap 512
-    instead of 384 at N=62500); margins are now
+    (~sqrt(mean)) is generous. Margins are
     max(0.15 * mean + 8, 3.5 * sqrt(mean)) — relatively tight for big pencils,
     wide for small ones where Poisson statistics dominate. Capacity overflow
     at (re)binning sets the engine's sticky overflow flag, so a violated
@@ -188,9 +166,8 @@ def _pencil_ids(x: jax.Array, y: jax.Array, grid: PencilGrid) -> jax.Array:
 
 def _run_starts(sorted_key: jax.Array) -> jax.Array:
     """For a SORTED key vector, the index of the first element of each
-    element's run. O(n) cummax — jnp.searchsorted(x, x) computes the same
-    thing but costs ~9 ms at n=75k on v5e (vmapped binary-search gathers)
-    vs ~0.8 ms for the scan."""
+    element's run: an O(n) cummax (``jnp.searchsorted(x, x)`` computes the
+    same thing with a binary search per element)."""
     n = sorted_key.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
     changed = jnp.concatenate(
@@ -204,15 +181,13 @@ def bin_to_slots(r: jax.Array, grid: PencilGrid):
     """Bin (N, 3) wrapped positions into pencil slots.
 
     Returns (slot_of_particle (N,), overflow flag). Particles are ranked
-    within a pencil by ascending z (the rank prefix is z-SORTED — the
-    z-window kernel depends on this), ties broken by particle index
-    (stable sort).
+    within a pencil by ascending z, ties broken by particle index (stable
+    sort).
     """
     n = r.shape[0]
     pid = _pencil_ids(r[:, 0], r[:, 1], grid)
-    # Lexicographic (pencil-major, z-minor) stable sort. lexsort keeps the
-    # ordering exact on any backend — the old f64 composite key truncated to
-    # f32 (with a UserWarning) on no-x64 backends like TPU.
+    # Lexicographic (pencil-major, z-minor) stable sort: exact on any dtype,
+    # where a composite float key would lose bits in f32.
     order = jnp.lexsort((r[:, 2], pid))
     sorted_pid = pid[order]
     ranks_sorted = jnp.arange(n) - _run_starts(sorted_pid)
@@ -222,51 +197,43 @@ def bin_to_slots(r: jax.Array, grid: PencilGrid):
     return slot, overflow
 
 
-@partial(jax.jit, static_argnames=("grid", "z_order"))
-def rebin_slots(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid,
-                z_order: bool = True):
-    """Recompute the slot assignment FROM slot-layout data (used by the
-    engine at rebuild time).
+def _packed_pencil_order(pid_key: jax.Array, grid: PencilGrid) -> jax.Array:
+    """Slot indices sorted by pencil key. Packs (pid << ceil_log2(ns)) | slot
+    into ONE int32 and sorts it UNSTABLY: the low slot-index bits make the
+    order deterministic by construction, and an unstable single-operand
+    sort is the cheapest sort XLA offers. Falls back to an unstable
+    2-operand sort when the packed key would overflow int31
+    (n_pencils * n_slots >= 2^31, N >> 1e6). Within a pencil, ranks follow
+    the previous slot order — any order is valid for the sweep."""
+    ns = grid.n_slots
+    bits = max(1, (ns - 1).bit_length())
+    if (grid.n_pencils << bits) < 2**31:
+        packed = (pid_key << bits) | jnp.arange(ns, dtype=jnp.int32)
+        packed = jax.lax.sort(packed, is_stable=False)
+        return packed & ((1 << bits) - 1)
+    _, order = jax.lax.sort_key_val(  # pragma: no cover - needs N >> 1e6
+        pid_key, jnp.arange(ns, dtype=jnp.int32), is_stable=False
+    )
+    return order
+
+
+@partial(jax.jit, static_argnames=("grid",))
+def rebin_slots(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid):
+    """Scatter form of the rebin: the new slot OF each old slot.
 
     rows_r: (8, n_slots) slot-layout positions (rows 0..2 = x,y,z);
     valid: (n_slots,) 1.0/0.0 slot validity.
     Returns (new_slot_for_old_slot (n_slots,), overflow): invalid old slots
-    map to the sentinel n_slots (dropped by the scatter).
-
-    ``z_order=False`` sorts by pencil id only — the half-shell and fused
-    pencil sweeps accept ANY within-pencil rank order, and the composite
-    (pencil, z) float key costs more and truncates to f32 on TPU anyway.
-    Keep z_order=True for the z-band windows, which require z-sorted rank
-    prefixes.
-
-    The pencil-only path packs (pid << ceil_log2(ns)) | slot into ONE int32
-    and sorts it UNSTABLY: XLA's STABLE sort comparator is ~2.2-2.4x slower
-    on v5e (exp_sort, 2026-08-18: 2.62 -> 1.32 ms at ns=185k, 4.97 -> 2.09
-    at ns=372k — stability, not operand count, is the cost), and the low
-    slot-index bits make the unstable sort deterministic by construction.
-    Falls back to an unstable 2-operand sort when the packed key would
-    overflow int31 (n_pencils * n_slots >= 2^31, N >> 1e6).
+    map to the sentinel n_slots (dropped by the scatter). The engines use
+    the gather form (``rebin_gather_parts``); tests hold it to this layout.
     """
     ns = grid.n_slots
-    x, y, z = rows_r[0], rows_r[1], rows_r[2]
-    pid = _pencil_ids(x, y, grid)
+    pid = _pencil_ids(rows_r[0], rows_r[1], grid)
     is_valid = valid > 0.5
     # Invalid slots pushed to the end.
     pid_key = jnp.where(is_valid, pid, grid.n_pencils)
-    if z_order:
-        order = jnp.lexsort((jnp.where(is_valid, z, 0.0), pid_key))
-        sorted_pid = pid_key[order]
-    else:
-        bits = max(1, (ns - 1).bit_length())
-        if (grid.n_pencils << bits) < 2**31:
-            packed = (pid_key << bits) | jnp.arange(ns, dtype=jnp.int32)
-            packed = jax.lax.sort(packed, is_stable=False)
-            order = packed & ((1 << bits) - 1)
-            sorted_pid = packed >> bits
-        else:  # pragma: no cover - needs N >> 1e6
-            sorted_pid, order = jax.lax.sort_key_val(
-                pid_key, jnp.arange(ns, dtype=jnp.int32), is_stable=False
-            )
+    order = _packed_pencil_order(pid_key, grid)
+    sorted_pid = pid_key[order]
     ranks_sorted = (jnp.arange(ns) - _run_starts(sorted_pid)).astype(jnp.int32)
     ranks = jnp.zeros((ns,), jnp.int32).at[order].set(ranks_sorted)
     overflow = jnp.any(is_valid & (ranks >= grid.capacity))
@@ -279,18 +246,11 @@ def rebin_slots(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid,
 
 
 def _pencil_counts(pid_key: jax.Array, grid: PencilGrid) -> jax.Array:
-    """Per-pencil population from (clipped-to-n_pencils) pencil keys.
-
-    The obvious ``zeros(P).at[pid].add(1)`` scatter-add costs ~8.6 ns PER
-    INDEX on v5e (3.2 ms at ns=372k — measured 2026-08-20,
-    scripts/exp_r5_rebin_attrib.py; the same per-index cost class as the
-    exp_permute scatter blow-up, and ``indices_are_sorted`` does not help).
-    A broadcast compare-reduce ``sum(pid == arange(P))`` is 40x cheaper
-    (0.08-0.25 ms: ns*P fused VPU compares at ~1e12/s, nothing
-    materialized). The compare form scales as O(ns * n_pencils), so fall
-    back to the scatter when that product gets huge (P ~ N^(2/3), so the
-    crossover is far above any supported N; at ns*P = 2^33 both forms cost
-    ~100 ms)."""
+    """Per-pencil population from (clipped-to-n_pencils) pencil keys, as a
+    broadcast compare-reduce ``sum(pid == arange(P))`` (fused, nothing
+    materialized) instead of a scatter-add. The compare form scales as
+    O(ns * n_pencils), so fall back to the scatter when that product gets
+    huge (P ~ N^(2/3): far above any supported N)."""
     ns = pid_key.shape[0]
     P = grid.n_pencils
     if ns * P <= (1 << 33):
@@ -304,42 +264,27 @@ def _pencil_counts(pid_key: jax.Array, grid: PencilGrid) -> jax.Array:
     ].add((pid_key < P).astype(jnp.int32))
 
 
-def rebin_gather_parts(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid,
-                       z_order: bool = False):
-    """Split-index form of ``rebin_gather``: returns ``(order, src,
+def rebin_gather_parts(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid):
+    """Gather form of the rebin, as split indices: returns ``(order, src,
     valid_new, overflow)`` with ``old_of_new = order[src]``.
 
-    Callers that permute data should apply the TWO gathers in sequence —
-    ``data[:, order][:, src]`` — instead of materializing ``old_of_new``
-    first: the sorted-order gather plus the near-sequential structured
-    ``src`` gather is cheaper than the single composed random gather
-    (measured 2026-08-20, exp_r5_rebin_attrib at ns=372k: composed
-    old_of_new build 2.7 ms + 10-row data gather 1.6 ms, vs double-gather
-    whole-rebin 3.76 ms against 8.18 — with the compare-reduce counts of
-    ``_pencil_counts`` replacing the 3.2 ms scatter-add).
+    Target slots are STRUCTURED (t = pid * capacity + j), so no inverse
+    scatter is needed: per-pencil counts come from ``_pencil_counts``, run
+    starts from their exclusive cumsum, and ``src[t] = starts[pid] + j``.
+    Callers that permute data apply the TWO gathers in sequence —
+    ``data[:, order][:, src]`` — instead of materializing ``old_of_new``:
+    the second gather is near-sequential.
 
-    Same contract and the same v5e-miscompile constraints as
-    ``rebin_gather`` (see its docstring): NO searchsorted, NO @jax.jit.
+    ``new_layout[:, t] = old_layout[:, old_of_new[t]] where valid_new[t]``.
+    Overflow victims (rank >= capacity) are dropped deterministically and
+    flagged; the layout is IDENTICAL to the scatter form's
+    (``rebin_slots``) for the same sort key.
     """
     ns = grid.n_slots
     cap = grid.capacity
     pid = _pencil_ids(rows_r[0], rows_r[1], grid)
-    is_valid = valid > 0.5
-    pid_key = jnp.where(is_valid, pid, grid.n_pencils)
-    if z_order:
-        order = jnp.lexsort(
-            (jnp.where(is_valid, rows_r[2], 0.0), pid_key)
-        ).astype(jnp.int32)
-    else:
-        bits = max(1, (ns - 1).bit_length())
-        if (grid.n_pencils << bits) < 2**31:
-            packed = (pid_key << bits) | jnp.arange(ns, dtype=jnp.int32)
-            packed = jax.lax.sort(packed, is_stable=False)
-            order = packed & ((1 << bits) - 1)
-        else:  # pragma: no cover - needs N >> 1e6
-            _, order = jax.lax.sort_key_val(
-                pid_key, jnp.arange(ns, dtype=jnp.int32), is_stable=False
-            )
+    pid_key = jnp.where(valid > 0.5, pid, grid.n_pencils)
+    order = _packed_pencil_order(pid_key, grid)
     counts = _pencil_counts(pid_key, grid)
     starts = jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1].astype(jnp.int32)]
@@ -353,145 +298,9 @@ def rebin_gather_parts(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid,
     return order, src, valid_new, overflow
 
 
-def rebin_gather(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid,
-                 z_order: bool = False):
-    """Gather-form rebin: the permutation as ``old slot OF each new slot``.
-
-    NO ``jnp.searchsorted`` and NO ``@jax.jit`` decoration here, on purpose:
-    on v5e, a searchsorted-based starts/counts pipeline inside the cellpair
-    engine's chunk graph (a live ``lax.scan`` in the same compiled module)
-    SILENTLY MISCOMPILES at some geometries — at N=131072 (ns=184960) it
-    loses 14,208 = 111*128 particles, lane-tile-granular, with or without
-    the Pallas sweep in the graph, only when the scan emits a real loop
-    (length >= 2). The segment-add + cumsum form below is measured clean in
-    the identical composition, as are the scatter-form sibling and every
-    standalone composition (bisected 2026-08-18, docs/RESULTS.md
-    "searchsorted miscompile"). Keep this function un-jitted so callers
-    trace it inline; direct eager calls (tests) run op-by-op.
-
-    The scatter form (``rebin_slots`` + an ``.at[:, new_slot].set`` permute)
-    pays XLA's scatter lowering, which blows up super-linearly on v5e
-    (exp_permute, 2026-08-18: 2.1 ms at ns=185k but 14.8-18 ms at ns=372k,
-    row-count-insensitive) while gathers stay ~linear (0.5 / 1.8-2.9 ms).
-    Target slots are STRUCTURED (t = pid * capacity + j), so no inverse
-    scatter is needed either: per-pencil counts come from a tiny
-    segment-add, run starts from their exclusive cumsum, and
-    ``old_of_new[t] = order[starts[pid] + j]`` is broadcast arithmetic plus
-    one 1-row gather.
-
-    Returns ``(old_of_new (ns,) int32, valid_new (ns,) bool, overflow)``:
-    ``new_layout[:, t] = old_layout[:, old_of_new[t]] where valid_new[t]``.
-    Overflow victims (rank >= capacity) are dropped, same contract as
-    ``rebin_slots``; the layout produced is IDENTICAL to the scatter form's
-    for the same sort key.
-
-    Perf note: hot callers should use ``rebin_gather_parts`` and the double
-    gather ``data[:, order][:, src]`` — composing ``old_of_new = order[src]``
-    here costs an extra ~2.7 ms random gather at ns=372k (exp_r5_rebin_attrib
-    2026-08-20); this form is kept for tests and one-shot callers.
-    """
-    order, src, valid_new, overflow = rebin_gather_parts(
-        rows_r, valid, grid, z_order=z_order
-    )
+def rebin_gather(rows_r: jax.Array, valid: jax.Array, grid: PencilGrid):
+    """Gather-form rebin with the composed permutation: returns
+    ``(old_of_new (ns,) int32, valid_new (ns,) bool, overflow)`` (see
+    ``rebin_gather_parts``)."""
+    order, src, valid_new, overflow = rebin_gather_parts(rows_r, valid, grid)
     return order[src], valid_new, overflow
-
-
-def default_z_window(grid: PencilGrid, n: int, r_extend: float, tile_i: int = 128) -> int:
-    """Static z-window width (slots): expected slice rank-span (tile_i) plus
-    the rank-equivalent of the +-r_extend z margin, with a fluctuation
-    safety factor; 128-aligned, clamped to [128, capacity]."""
-    occ = n / grid.n_pencils
-    # +128 slack: window starts are aligned DOWN to 128-lane boundaries
-    # (Mosaic requires provable alignment of dynamic lane slices).
-    est = (tile_i + 2.0 * r_extend / grid.box_length * occ) * 1.35 + 16 + 128
-    w = ((int(est) + 127) // 128) * 128
-    return max(128, min(w, grid.capacity))
-
-
-@partial(jax.jit, static_argnames=("grid", "window", "tile_i", "r_extend"))
-def compute_z_windows(
-    rows_r: jax.Array,
-    valid: jax.Array,
-    counts: jax.Array,
-    grid: PencilGrid,
-    window: int,
-    r_extend: float,
-    tile_i: int = 128,
-):
-    """Per-(i-slice, neighbor) z-window start tables for the banded kernel.
-
-    For each 128-slot i-slice and each of its 9 xy-neighbor pencils, find up
-    to two ``window``-slot rank windows covering every j whose BIN-TIME z lies
-    within [zmin_i - r_extend, zmax_i + r_extend] (circularly in z). Window A
-    covers the main interval; window B covers the PBC-wrapped spillover when
-    the interval crosses z = 0 or z = L (the kernel dedups A/B overlap by
-    rank). Requires the z-sorted rank prefix from ``bin_to_slots``.
-
-    Returns (start_a, start_b, use_b) each (T*9,) int32 flattened, plus an
-    ``overflow`` flag set when some window cannot cover its interval (results
-    would silently miss pairs -> caller must grow ``window``/capacity).
-    """
-    cap = grid.capacity
-    L = grid.box_length
-    T = grid.n_slots // tile_i
-    tiles_per_pencil = cap // tile_i
-    big = 2.0 * L  # sentinel z for empty slots: sorts after all real z
-
-    z = rows_r[2]
-    ok = valid > 0.5
-    zcol = jnp.where(ok, z, big).reshape(grid.n_pencils, cap)
-
-    zsl = z.reshape(T, tile_i)
-    vsl = ok.reshape(T, tile_i)
-    zmin = jnp.min(jnp.where(vsl, zsl, big), axis=1)
-    zmax = jnp.max(jnp.where(vsl, zsl, -big), axis=1)
-    nonempty = vsl.any(axis=1)
-
-    lo = zmin - r_extend
-    hi = zmax + r_extend
-
-    nbr = jnp.asarray(grid.neighbor_table())             # (P, 9)
-    slice_pencil = jnp.arange(T) // tiles_per_pencil
-    nbrs = nbr[slice_pencil]                             # (T, 9)
-    zk = zcol[nbrs]                                      # (T, 9, cap)
-
-    def ss(a, v, side):
-        # CAUTION: jnp.searchsorted miscompiled on v5e inside the cellpair
-        # chunk graph (see rebin_gather's docstring). This use is in the
-        # EXPERIMENTAL z-band path (default off) and recomputed only at
-        # rebins; if z_band is ever promoted, validate etot conservation at
-        # N >= 1e5 on TPU first or rewrite via segment counts.
-        return jnp.searchsorted(a, v, side=side)
-
-    ss_rows = jax.vmap(jax.vmap(ss, in_axes=(0, 0, None)), in_axes=(0, 0, None))
-    lo_b = jnp.broadcast_to(jnp.maximum(lo, 0.0)[:, None], (T, 9))
-    hi_b = jnp.broadcast_to(jnp.minimum(hi, L)[:, None], (T, 9))
-    s1 = ss_rows(zk, lo_b, "left")
-    e1 = ss_rows(zk, hi_b, "right")
-    # align starts down to 128 (Mosaic lane-slice alignment); coverage check
-    # uses the aligned start.
-    start_a = jnp.minimum((s1 // 128) * 128, cap - window)
-    over_a = e1 > start_a + window
-
-    wrap_lo = jnp.broadcast_to((lo < 0.0)[:, None], (T, 9))
-    wrap_hi = jnp.broadcast_to((hi > L)[:, None], (T, 9))
-    # wrap below: [lo+L, L] -> ranks [s2, count); wrap above: [0, hi-L] -> [0, e3)
-    s2 = ss_rows(zk, jnp.broadcast_to((lo + L)[:, None], (T, 9)), "left")
-    e2 = counts[nbrs]
-    e3 = ss_rows(zk, jnp.broadcast_to((hi - L)[:, None], (T, 9)), "right")
-    use_b = wrap_lo | wrap_hi
-    b_start_raw = jnp.where(wrap_lo, s2, 0)
-    b_end = jnp.where(wrap_lo, e2, e3)
-    start_b = jnp.minimum((b_start_raw // 128) * 128, cap - window)
-    over_b = use_b & (b_end > start_b + window)
-
-    bad = nonempty[:, None] & (over_a | over_b | (wrap_lo & wrap_hi))
-    overflow = jnp.any(bad)
-
-    z32 = jnp.int32
-    return (
-        start_a.astype(z32).reshape(-1),
-        start_b.astype(z32).reshape(-1),
-        use_b.astype(z32).reshape(-1),
-        overflow,
-    )

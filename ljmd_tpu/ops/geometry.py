@@ -7,10 +7,9 @@ Rebuild of ``scripts/physics/geometry_pbc.f90``:
 - ``minimum_image``: nearest-image displacement dx - L*nint(dx/L)
   (reference geometry_pbc.f90:80-88)
 
-Both are pure elementwise jnp functions (VPU ops under jit) that work on any
-shape and dtype and broadcast over leading axes, so the same primitives serve
-the scalar-pair case, (N, 3) state arrays, and (TI, TJ) pair tiles inside
-Pallas kernels.
+All are pure elementwise jnp functions that work on any shape and dtype and
+broadcast over leading axes, so the same primitives serve the scalar-pair
+case, (N, 3) state arrays, and (N, N) pair matrices.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["wrap_positions", "minimum_image"]
+__all__ = ["wrap_positions", "wrap_positions_ext", "minimum_image"]
 
 
 def wrap_positions(r: jax.Array, box_length, inv_box_length=None) -> jax.Array:
@@ -51,3 +50,15 @@ def minimum_image(dr: jax.Array, box_length, inv_box_length=None) -> jax.Array:
     if inv_box_length is None:
         inv_box_length = 1.0 / box_length
     return dr - box_length * jnp.round(dr * inv_box_length)
+
+
+def wrap_positions_ext(hi: jax.Array, lo: jax.Array, box_length: float):
+    """Wrap two-float positions (hi + lo) into [0, L) without losing the
+    remainder: hi' = hi - k*L with the subtraction's rounding error folded
+    into lo. k*L is exact for the small |k| (<= 2) that occur between wraps."""
+    k = jnp.floor(hi * (1.0 / box_length))
+    d = k * box_length
+    s = hi - d
+    big = jnp.abs(hi) >= jnp.abs(d)
+    err = jnp.where(big, (hi - s) - d, (-d - s) + hi)
+    return s, lo + err

@@ -13,16 +13,15 @@ with minimum-image convention, sharp cutoff at rc, and optional mean-field
 tail corrections assuming g(r) = 1 beyond rc
 (``lj_potential_energy.f90:205-223``).
 
-TPU-native design (vs. the reference's i<j scalar loop with Newton's-3rd-law
-scatter, which does not vectorize): we sweep the FULL N x N pair matrix as
-per-component (N, N) elementwise arrays — lane-friendly VPU shapes — mask the
+Design (vs. the reference's i<j scalar loop with Newton's-3rd-law scatter,
+which does not vectorize): we sweep the FULL N x N pair matrix as
+per-component (N, N) elementwise arrays, mask the
 diagonal and the cutoff, and halve the symmetric scalar sums. Forces need no
 halving: F_i = sum_j f_ij over the full row, and the antisymmetry that the
 reference exploits via scatter is free here. This costs 2x the FLOPs of the
 triangular loop but is the idiomatic data-parallel form (SURVEY §7 "Hard
-parts"). A tiled Pallas variant of the same math lives in
-``ljmd_tpu/ops/pallas_lj.py``; this dense jnp version is the correctness
-oracle and the CPU/small-N path.
+parts"). This dense version is the correctness oracle and the small-N
+path; the neighbor-list and pencil engines reuse ``_pair_terms``.
 """
 
 from __future__ import annotations

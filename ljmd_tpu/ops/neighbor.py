@@ -2,7 +2,7 @@
 
 The reference has NO neighbor/cell lists — its force kernel is a pure O(N^2)
 loop every step (``lj_potential_energy.f90:97`` flags this itself). This
-module is the TPU-native scaling answer (SURVEY §5.7): a fixed-capacity
+module is the mid-N scaling answer (SURVEY §5.7): a fixed-capacity
 neighbor list (static shapes for XLA) built from a cutoff rc + skin, rebuilt
 only when some particle has moved more than skin/2 since the build, and a
 gather-based force evaluation touching O(N*K) pairs per step instead of N^2.
@@ -16,9 +16,9 @@ Design notes:
   rc_list = rc + skin, padded with the sentinel index N (an extra phantom
   row appended to the gathered positions). Both directions of a pair are
   stored, so scalar sums are halved, matching the dense full-matrix sweep.
-- Builds come in two flavors: a dense O(N^2) build (simple, fine up to
-  ~16k particles — it runs only every ~10-40 steps), and a cell-list build
-  for large N (``ljmd_tpu/ops/cell_list.py``).
+- The build is a dense O(N^2) sweep (simple; it runs only every ~10-40
+  steps). Its N x N arrays bound the N it can serve; larger liquids go to
+  the pencil engine (``parallel/spatial_pencil.py``).
 - ``overflow`` flags particles with more than K in-range neighbors; the
   driver re-raises this to the user (capacity is config, like every other
   static knob).
@@ -60,7 +60,7 @@ class NeighborList:
 def estimate_capacity(density: float, r_list: float, safety: float = 1.35) -> int:
     """Static neighbor capacity: ideal-gas count in the r_list sphere times a
     safety factor (liquid-state g(r) peaks push local density above the
-    mean), rounded up to a multiple of 8 for lane alignment."""
+    mean), rounded up to a multiple of 8."""
     mean_count = density * (4.0 / 3.0) * 3.141592653589793 * r_list**3
     k = int(mean_count * safety) + 8
     return ((k + 7) // 8) * 8

@@ -48,8 +48,7 @@ class HostSeries:
     memory guarantee) — but ``EnsembleResult`` is a pytree-registered
     dataclass, and a bare numpy array in a data field would be treated as a
     leaf: ``jax.tree.map`` over the result would device-put it (or trip on
-    it under jit), silently defeating the host/device split (VERDICT round-4
-    item 5). This wrapper is registered as a pytree node with NO children,
+    it under jit), silently defeating the host/device split. This wrapper is registered as a pytree node with NO children,
     so tree transformations pass it through untouched, while ``np.asarray``
     / ``.shape`` / indexing keep working for consumers.
     """
@@ -190,8 +189,7 @@ def _make_batched(cfg: SimConfig, backend: str):
 def _batched_ensemble_fn(cfg: SimConfig, backend: str):
     """Cached jitted ensemble pipeline. SimConfig is hashable by design; a
     fresh closure per call would re-TRACE the whole vmapped pipeline every
-    invocation (~2.7s at 64 x N=256 even with the XLA compile cached —
-    measured, scripts/exp_ensemble.py)."""
+    invocation, even with the XLA compile cached."""
     return jax.jit(_make_batched(cfg, backend))
 
 
@@ -246,10 +244,8 @@ def _streaming_programs(cfg: SimConfig, backend: str):
     on (config, backend) like ``_batched_ensemble_fn``: fresh ``jax.jit``
     wrappers per call would re-TRACE the vmapped scan programs every
     invocation — XLA compilation is content-cached process-wide, but
-    tracing the R-batched 20-step sample cycle costs ~15-25 s per call on
-    this 1-core host (measured 2026-08-19, exp_ens_scale warm pairs: a
-    6000-step warm run sometimes took LONGER than a 22000-step one purely
-    on trace jitter). The cache makes repeat streaming calls trace-free."""
+    tracing the R-batched sample cycle is not. The cache makes repeat
+    streaming calls trace-free."""
     from functools import partial
 
     from jax import lax
@@ -263,7 +259,7 @@ def _streaming_programs(cfg: SimConfig, backend: str):
         means_update,
     )
 
-    engine = make_engine(cfg, backend, sample_interval=cfg.output_interval)
+    engine = make_engine(cfg, backend)
     prologue, _n_samples, _ = _cadence(cfg)
     dtype = _effective_dtype(cfg)
 
@@ -289,7 +285,6 @@ def _streaming_programs(cfg: SimConfig, backend: str):
                 ec_, ob = _advance(
                     ec_, engine.step, cfg.output_interval, dtype,
                     fast_fn=engine.step_fast, run_fast=engine.run_fast,
-                    run_sample=engine.run_sample,
                 )
                 acc_ = means_update(acc_, ob, cfg.n, cfg.volume)
                 temp, press = instantaneous_temp_press(ob, cfg.n, cfg.volume)
@@ -315,8 +310,7 @@ def ensemble_simulate_streaming(
     backend: str = "auto",
     chunk_samples: int = 32,
 ):
-    """Ensemble run with HOST-streamed per-replica series (VERDICT round-1
-    item 8): the sampled (R, 5, k) series blocks are fetched to host after
+    """Ensemble run with HOST-streamed per-replica series: the sampled (R, 5, k) series blocks are fetched to host after
     every ``chunk_samples`` samples, so a config-4-at-scale run (many
     replicas x reference-length sampling) never materializes the full
     (R, 5, n_samples) series DURING the run — only the means accumulators
@@ -324,8 +318,7 @@ def ensemble_simulate_streaming(
 
     The correlation stage afterwards IS batched: one vmapped program over
     the full (R, 5, n_samples) host stack (a host loop of per-replica jit
-    calls was the driver's dominant non-sweep cost — exp_ens_attrib2,
-    2026-08-19). At config-4 scale that stack is ~6 MB; for R*n_samples far
+    calls costs one dispatch per replica). At config-4 scale that stack is ~6 MB; for R*n_samples far
     beyond that, chunk the ``corr_fn`` call over replica groups.
 
     Returns an EnsembleResult numerically identical to ``ensemble_simulate``
@@ -360,10 +353,8 @@ def ensemble_simulate_streaming(
     report = jax.vmap(lambda a: means_finalize(a))(acc)
 
     # Per-replica correlation curves, batched over replicas in ONE vmapped
-    # program: the host loop of r jit calls cost ~160 us/bstep of the
-    # config-4 steady rate (exp_ens_attrib2, 2026-08-19 — the driver's
-    # dominant non-sweep term), and the full (R, 5, n_samples) f32 stack
-    # is only ~6 MB at config-4 scale, far below any HBM concern.
+    # program instead of a host loop of r jit calls; the full
+    # (R, 5, n_samples) f32 stack is only ~6 MB at config-4 scale.
     if corr_fn is not None:
         c, cn = corr_fn(jnp.asarray(series_host, dtype))
         corr = jnp.asarray(np.asarray(c))

@@ -1,12 +1,12 @@
 """Device-mesh helpers.
 
 The reference is single-process (SURVEY §5.8): its only "distribution" is a
-serial loop over runs. The TPU-native equivalents built on this mesh:
+serial loop over runs. The equivalents built on this mesh:
 
-- ensemble replicas  -> mesh axis "replica" (data-parallel analogue; ICI only
-  for final cross-run reductions) — ``ljmd_tpu/parallel/ensemble.py``
+- ensemble replicas  -> mesh axis "replica" (data-parallel analogue; collectives
+  only for final cross-run reductions) — ``ljmd_tpu/parallel/ensemble.py``
 - large-N particle sharding -> mesh axis "particle" (sequence-parallel
-  analogue; i-tiles sharded, j swept via all-gather over ICI) —
+  analogue; i-tiles sharded, j blocks passed around a ring) —
   ``ljmd_tpu/parallel/spatial.py``
 """
 

@@ -1,14 +1,14 @@
 """Particle-axis (spatial) sharding of the pair sweep over a device mesh.
 
-TPU-native large-N mode (SURVEY §5.7/§5.8): the i-axis of the N x N pair
-matrix is sharded over the mesh's "particle" axis. Three comm strategies:
+Multi-device mode (SURVEY §5.7/§5.8): the i-axis of the N x N pair matrix
+is sharded over the mesh's "particle" axis. Three comm strategies:
 
 - ``half_ring`` (default): PAIR-ONCE force decomposition — triangular self
   block, floor((d-1)/2) rect-Newton ring hops (j blocks and their traveling
   reaction accumulators rotate via ``lax.ppermute``), a gated complementary-
   half hop for even d, and one final permute returning reactions to their
   owners. Exactly N^2/2 pair evaluations across the mesh (the ordered-pair
-  ring did 2x that — VERDICT round-4 item 2).
+  ring did 2x that).
 - ``ring``: ordered-pair j-block rotation (kept for comparison/fallback).
 - ``all_gather``: replicate positions per device (tests/oracle).
 
@@ -32,7 +32,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ljmd_tpu.config import SimConfig
-from ljmd_tpu.models.engine import _comp_add, _effective_dtype
+from ljmd_tpu.models.engine import _comp_add, _compensated, _effective_dtype
 from ljmd_tpu.ops.geometry import minimum_image, wrap_positions
 from ljmd_tpu.ops.lj import _pair_terms, tail_corrections
 from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
@@ -101,10 +101,9 @@ def lj_rect_partials_newton(
     j_hi=None,
     triangular: bool = False,
 ):
-    """Pair-ONCE rect sweep with Newton's-3rd-law reactions (jnp fallback of
-    ``pallas_pair_sweep_rect_newton``): local i rows (ni, 3) against a j
-    block (nj, 3), each pair in the active range [i_lo, ni) x [0, j_hi)
-    evaluated once.
+    """Pair-ONCE rect sweep with Newton's-3rd-law reactions: local i rows
+    (ni, 3) against a j block (nj, 3), each pair in the active range
+    [i_lo, ni) x [0, j_hi) evaluated once.
 
     Returns (a_i (ni,3), a_j (nj,3), e, du, ddu): i-side forces, j-side
     reaction forces (both WITHOUT the 24 prefactor), and pair-once scalar
@@ -171,9 +170,6 @@ def _ring_partials(
     n_shards: int,
     box_length: float,
     rc_square: float,
-    use_pallas: bool,
-    interpret: bool,
-    want_obs: bool = True,
 ):
     """Ring-pass j-block pair sweep (SURVEY §5.8/§7 design): instead of
     replicating all positions per device (``all_gather``, O(N) memory per
@@ -191,41 +187,6 @@ def _ring_partials(
     gi0 = my * ni
     # ring: each device forwards its current j block to the next neighbor
     perm = [(s, (s + 1) % n_shards) for s in range(n_shards)]
-
-    if use_pallas:
-        from ljmd_tpu.ops.pallas_lj import _round_up, pallas_pair_sweep_rect
-
-        # tile_i must be a 128 lane multiple on real TPU (Mosaic rejects a
-        # (8, 8) block: last dim not divisible by 128 — caught by the
-        # mesh=1 hardware run 2026-08-19; interpret-mode CPU tests cannot
-        # see it). The kernel masks li < n_i, so 128-padding is exact for
-        # any local count.
-        tile_i = 128
-        nj_pad = _round_up(ni, 128)
-        # tile_j must DIVIDE nj_pad (the rect kernel grids over nj_pad /
-        # tile_j): pick the largest 128-multiple divisor <= 1024, mirroring
-        # the zsort engine's sweep_tj selection (a bare min(1024, nj_pad)
-        # raises at trace time for e.g. nj_pad=1152).
-        tile_j = max(
-            t for t in range(128, min(1024, nj_pad) + 1, 128) if nj_pad % t == 0
-        )
-        ni_pad = _round_up(ni, 128)
-        pos_i = jnp.zeros((8, ni_pad), dtype).at[0:3, :ni].set(r_local.T)
-        pos_j = jnp.zeros((8, nj_pad), dtype).at[0:3, :ni].set(r_local.T)
-
-        acc = jnp.zeros_like(pos_i)
-        for s in range(n_shards):
-            gj0 = ((my - s) % n_shards) * ni
-            acc = acc + pallas_pair_sweep_rect(
-                pos_i, pos_j, ni, ni, gi0, gj0,
-                box_length, rc_square,
-                tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-                want_observables=want_obs, approx_reciprocal=True,
-            )
-            if s + 1 < n_shards:
-                pos_j = lax.ppermute(pos_j, axis, perm)
-        a_loc = acc[0:3, :ni].T
-        return a_loc, jnp.sum(acc[3]), jnp.sum(acc[4]), jnp.sum(acc[5])
 
     r_j = r_local
     a_loc = jnp.zeros((ni, 3), dtype)
@@ -252,12 +213,9 @@ def _half_ring_partials(
     n_shards: int,
     box_length: float,
     rc_square: float,
-    use_pallas: bool,
-    interpret: bool,
-    want_obs: bool = True,
 ):
-    """PAIR-ONCE half-ring force decomposition (VERDICT round-4 item 2,
-    classic force-decomposition MD): the full ring computed every ordered
+    """PAIR-ONCE half-ring force decomposition (classic
+    force-decomposition MD): the full ring computed every ordered
     pair — 2x the pair work. Here each unordered pair is evaluated once:
 
     - self block: triangular cover (gj > gi) with in-kernel Newton reactions;
@@ -296,57 +254,6 @@ def _half_ring_partials(
             )
         return jnp.asarray(0, jnp.int32), jnp.asarray(ni, jnp.int32)
 
-    if use_pallas:
-        from ljmd_tpu.ops.pallas_lj import (
-            _round_up,
-            pallas_pair_sweep_rect_newton,
-            pallas_pair_sweep_tri,
-        )
-
-        tile_i = 128
-        ni_pad = _round_up(ni, 128)
-        # Largest 128-multiple divisor of ni_pad <= 512: with the resident
-        # j-side reaction accumulator, TJ=512 measured fastest for the tri
-        # self block (exp_r5_resident_acc 2026-08-20: 166.9 us/sweep at
-        # n_pad=4096 vs 176.1 at TJ=1024, 198.7 at 256).
-        tile_j = max(
-            t for t in range(128, min(512, ni_pad) + 1, 128) if ni_pad % t == 0
-        )
-        pos_local = jnp.zeros((8, ni_pad), dtype).at[0:3, :ni].set(r_local.T)
-        # Triangular self block (pair-once, reactions folded in-kernel).
-        # want_observables=False on non-sampled steps drops the e/du/ddu
-        # rows INSIDE the kernel (XLA cannot DCE into an opaque pallas_call
-        # — round-5 find: the half-ring self sweep paid the full obs body
-        # plus exact divides every step while the single-chip rows engine's
-        # step_fast sweep did neither; that kernel-flag mismatch, not shard
-        # glue, was most of the mesh=1 165-vs-118 us gap).
-        acc = pallas_pair_sweep_tri(
-            pos_local, ni, box_length, rc_square,
-            tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-            want_observables=want_obs, approx_reciprocal=True,
-        )
-        pos_j = pos_local
-        facc = jnp.zeros((8, ni_pad), dtype)
-        for h in range(1, total_hops + 1):
-            pos_j = lax.ppermute(pos_j, axis, perm_fwd)
-            facc = lax.ppermute(facc, axis, perm_fwd)
-            gj0 = ((my - h) % d) * ni
-            i_lo, j_hi = _hop_ranges(h)
-            out_i, out_j = pallas_pair_sweep_rect_newton(
-                pos_local, pos_j, ni, ni, gi0, gj0, box_length, rc_square,
-                i_lo=i_lo, j_hi=j_hi, tile_i=tile_i, tile_j=tile_j,
-                interpret=interpret,
-                want_observables=want_obs, approx_reciprocal=True,
-            )
-            acc = acc + out_i
-            facc = facc + out_j
-        if total_hops:
-            perm_back = [(s, (s - total_hops) % d) for s in range(d)]
-            facc = lax.ppermute(facc, axis, perm_back)
-            acc = acc + facc  # facc rows 3..7 are zero
-        a_loc = acc[0:3, :ni].T
-        return a_loc, jnp.sum(acc[3]), jnp.sum(acc[4]), jnp.sum(acc[5])
-
     a_i, a_j, e, du, ddu = lj_rect_partials_newton(
         r_local, r_local, gi0, gi0, box_length, rc_square, triangular=True
     )
@@ -377,36 +284,24 @@ def _make_local_step(
     axis: str,
     n_shards: int = 0,
     comm: str = "half_ring",
-    use_pallas: bool | None = None,
-    interpret: bool | None = None,
 ):
     """The shard-local velocity-Verlet step body (one particle shard).
 
     comm="ring": ppermute ring exchange of j blocks (O(N/d) per-chip memory);
-    comm="all_gather": replicate positions per device (the round-1 path,
-    kept for tests/fallback). use_pallas selects the tiled Pallas rect
-    kernel for the local sweep (default: on TPU).
+    comm="all_gather": replicate positions per device (kept as
+    the oracle for tests).
 
-    Precision follows the single-chip engines (commit 72192a8's invariant,
-    extended to multi-chip per VERDICT round-2 item 3a): the policy keys on
-    the EFFECTIVE dtype, and f32 at dt <= 1e-3 gets Neumaier-compensated
-    updates. When compensated, ``step_local`` takes/returns
+    Precision follows the single-device engines (``engine._compensated``):
+    the policy keys on the EFFECTIVE dtype, and f32 at dt <= 1e-3 gets
+    Neumaier-compensated updates. When compensated, ``step_local`` takes/returns
     ``(state, rc, vc)`` instead of a bare MDState; callers check the
     ``step_local.compensated`` attribute."""
     dtype = _effective_dtype(cfg)
-    compensated = (cfg.compensated_sum or cfg.dt <= 1.0e-3) and dtype == jnp.float32
+    compensated = _compensated(cfg)
     dt = cfg.dt
     half_dt = 0.5 * cfg.dt
     half_dt_sq = 0.5 * cfg.dt * cfg.dt
     L = cfg.box_length
-
-    if interpret is None:
-        try:
-            interpret = jax.devices()[0].platform != "tpu"
-        except Exception:  # pragma: no cover
-            interpret = True
-    if use_pallas is None:
-        use_pallas = not interpret
 
     e_t, d_t, dd_t = (
         tail_corrections(cfg.n, cfg.volume, cfg.rc)
@@ -418,13 +313,11 @@ def _make_local_step(
         pair_once = comm == "half_ring"
         if comm == "half_ring":
             a_raw, e, du, ddu = _half_ring_partials(
-                r_local, axis, n_shards, L, cfg.rc_square, use_pallas,
-                interpret, want_obs=want_obs,
+                r_local, axis, n_shards, L, cfg.rc_square,
             )
         elif comm == "ring":
             a_raw, e, du, ddu = _ring_partials(
-                r_local, axis, n_shards, L, cfg.rc_square, use_pallas,
-                interpret, want_obs=want_obs,
+                r_local, axis, n_shards, L, cfg.rc_square,
             )
         elif comm == "all_gather":
             r_all = lax.all_gather(r_local, axis, axis=0, tiled=True)
@@ -433,8 +326,8 @@ def _make_local_step(
         else:
             raise ValueError(f"unknown comm {comm!r}")
         if not want_obs:
-            # fast path (run_fast chunk interiors): the kernels skipped the
-            # e/du/ddu rows; the psums and prefactor math are dead too.
+            # fast path (run_fast chunk interiors): the psums and prefactor
+            # math are dead.
             zero = jnp.zeros((), dtype)
             return 24.0 * a_raw, zero, zero, zero
         e = lax.psum(e, axis)
@@ -452,9 +345,9 @@ def _make_local_step(
 
     if compensated:
         def step_local(state: MDState, rc: jax.Array, vc: jax.Array):
-            # Same update order and wrap handling as the single-chip rows
-            # engine's compensated _step (models/engine.py) so multi-chip
-            # and single-chip compensated trajectories are comparable.
+            # Same update order and wrap handling as the single-device
+            # engines' compensated step (models/engine.py) so sharded and
+            # single-device compensated trajectories are comparable.
             r_raw, rc_new = _comp_add(state.r, rc, state.v * dt + state.a * half_dt_sq)
             r_new = wrap_positions(r_raw, L)
             v_half, vc_half = _comp_add(state.v, vc, state.a * half_dt)
@@ -527,12 +420,11 @@ def make_spatial_step_fn(
     mesh: Mesh,
     axis: str = PARTICLE_AXIS,
     comm: str = "half_ring",
-    use_pallas: bool | None = None,
 ):
     """A velocity-Verlet step over particle shards via shard_map.
 
     State arrays are sharded (N/d, 3) per device; the force evaluation
-    ring-passes j blocks over ICI (``comm="ring"``, default; O(N/d) per-chip
+    ring-passes j blocks between devices (``comm="ring"``, default; O(N/d) per-chip
     memory) or all-gathers positions (``comm="all_gather"``), and psums the
     scalar observables, which come back replicated. cfg.n must be divisible
     by the axis size.
@@ -541,7 +433,7 @@ def make_spatial_step_fn(
     if cfg.n % n_shards != 0:
         raise ValueError(f"N={cfg.n} not divisible by particle-axis size {n_shards}")
 
-    step_local = _make_local_step(cfg, axis, n_shards, comm=comm, use_pallas=use_pallas)
+    step_local = _make_local_step(cfg, axis, n_shards, comm=comm)
     spec = spatial_state_specs()
     p = P(PARTICLE_AXIS, None)
     if step_local.compensated:
@@ -555,7 +447,7 @@ def make_spatial_step_fn(
         mesh=mesh,
         in_specs=in_specs,
         out_specs=out_specs,
-        check_vma=False,  # Pallas out_shape carries no vma annotation
+        check_vma=False,
     )
     fn.compensated = step_local.compensated
     return fn
@@ -566,7 +458,6 @@ def make_ensemble_spatial_step_fn(
     mesh: Mesh,
     axis: str = PARTICLE_AXIS,
     comm: str = "half_ring",
-    use_pallas: bool | None = None,
 ):
     """Combined replica x particle sharding: batched MDState arrays
     (R, N, 3) sharded P(replica, particle, None); one velocity-Verlet step
@@ -582,7 +473,7 @@ def make_ensemble_spatial_step_fn(
     if cfg.n % n_shards != 0:
         raise ValueError(f"N={cfg.n} not divisible by particle-axis size {n_shards}")
 
-    single_step = _make_local_step(cfg, axis, n_shards, comm=comm, use_pallas=use_pallas)
+    single_step = _make_local_step(cfg, axis, n_shards, comm=comm)
 
     spec = MDState(*(P(REPLICA_AXIS, axis, None),) * 4)
     p = P(REPLICA_AXIS, axis, None)
@@ -615,12 +506,11 @@ def make_spatial_engine(
     mesh: Mesh,
     axis: str = PARTICLE_AXIS,
     comm: str = "half_ring",
-    use_pallas: bool | None = None,
 ):
     """Engine-interface wrapper for the particle-sharded step, so the
     standard drivers (run_production / streaming / artifacts) run the
     multi-chip path with the same sampling cadence, means accumulation, and
-    file contract as the single-device engines (VERDICT round-1 item 4).
+    file contract as the single-device engines.
 
     The carry is a particle-sharded MDState; get_state returns it as-is
     (arrays are global jax.Arrays with shardings — fully addressable on a
@@ -632,18 +522,17 @@ def make_spatial_engine(
     if cfg.n % n_shards != 0:
         raise ValueError(f"N={cfg.n} not divisible by particle-axis size {n_shards}")
 
-    step_local = _make_local_step(cfg, axis, n_shards, comm=comm, use_pallas=use_pallas)
+    step_local = _make_local_step(cfg, axis, n_shards, comm=comm)
     spec = spatial_state_specs()
     obs_spec = StepObs(P(), P(), P(), P())
     p = P(PARTICLE_AXIS, None)
 
-    # Fused multi-step chunks (VERDICT round-3 item 2): the whole k-step
+    # Fused multi-step chunks: the whole k-step
     # loop runs INSIDE one shard_map — per-step ring/all_gather exchange and
     # local sweep compile into a single program per device, so the per-step
-    # launch + collective dispatch glue does not return at N chips. The rect
-    # path has no spatial bins, hence no rebin cadence: one shard_map per
-    # run_fast call, lax.scan over the steps inside (no gather-rebin in the
-    # module, so the v5e rebin+scan miscompile class does not apply).
+    # launch + collective dispatch glue does not return at N devices. The
+    # rect path has no spatial bins, hence no rebin cadence: one shard_map
+    # per run_fast call, lax.scan over the steps inside.
     chunk_fns: dict[int, object] = {}
 
     def _make_chunk_fn(k: int):
@@ -679,8 +568,7 @@ def make_spatial_engine(
 
     if step_local.compensated:
         # Carry = (MDState, rc, vc): the compensated multi-chip step (a
-        # dt=1e-4 f32 run must not drift the way the single-chip path was
-        # fixed for — commit 72192a8's invariant, VERDICT round-2 item 3a).
+        # dt=1e-4 f32 run must not drift, as on one device).
         in_specs = ((spec, p, p),)
         out_specs = ((spec, p, p), obs_spec)
         step = shard_map(
@@ -712,7 +600,7 @@ def make_spatial_engine(
 
     step = shard_map(
         step_local, mesh=mesh, in_specs=(spec,), out_specs=(spec, obs_spec),
-        check_vma=False,  # Pallas out_shape carries no vma annotation
+        check_vma=False,
     )
     init_sharded = shard_map(
         step_local.init_local, mesh=mesh, in_specs=(spec,), out_specs=(spec, obs_spec),

@@ -5,7 +5,7 @@ Rebuild of the reference's ``sim_state`` struct-of-arrays container
 tracking arrays the reference driver allocates separately
 (``scripts/md_simulation_program.f90:199-231``).
 
-TPU-native design: the state is a single immutable pytree of ``(N, 3)``
+Design: the state is a single immutable pytree of ``(N, 3)``
 arrays resident in HBM for the whole ``lax.scan`` trajectory, carried
 functionally through the step function instead of mutated in place. The RNG
 key and step counter live in the pytree too so checkpoints capture a full

@@ -15,7 +15,7 @@ Rebuild of ``scripts/stats/stats_math.f90`` and the series/block machinery of
   ``centered``), and average the curves over blocks — both <C> and <C/C(0)>
   (md_correlations.f90:668-803).
 
-TPU-native design: the reference stores each observable's series in a
+Design: the reference stores each observable's series in a
 heap-allocated accumulator and loops lags with dot products; here a series is
 just a ``(n,)`` array (sampled scalars are tiny — SURVEY §7 design mapping)
 and the lag sweep is one vmapped dynamic-slice dot per lag, fully jittable
@@ -52,8 +52,11 @@ def autocorr(series: jax.Array, max_lag: int, centered: bool = False) -> jax.Arr
     def one_lag(lag):
         shifted = lax.dynamic_slice_in_dim(padded, lag, n, axis=-1)
         # zero padding makes products beyond n-1-L vanish, so the dot equals
-        # sum_{k<=n-1-L} A(k) A(k+L)
-        return jnp.dot(series, shifted) / (n - lag).astype(dtype)
+        # sum_{k<=n-1-L} A(k) A(k+L). HIGHEST: the centered f32 Etot series
+        # has a tiny variance that a reduced-precision (TF32) dot would erase.
+        return jnp.dot(series, shifted, precision=lax.Precision.HIGHEST) / (
+            n - lag
+        ).astype(dtype)
 
     return jax.vmap(one_lag)(lags)
 

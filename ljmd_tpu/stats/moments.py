@@ -14,7 +14,7 @@ without storing the series, where per sample
   P = rho T + W / (3 V)      (md_means.f90:227), with W = -d_epot
                               (md_simulation_program.f90:365-366)
 
-TPU-native design: instead of 22 named scalar fields, the accumulator is one
+Design: instead of 22 named scalar fields, the accumulator is one
 ``(2, 11)`` array (row 0 = sums, row 1 = sums of squares) living in the
 ``lax.scan`` carry, so a sample update is two fused vector ops. Observable
 order is fixed by ``OBSERVABLES``.
@@ -64,8 +64,8 @@ class MeansAccum:
     the SHIFTED samples x - shift, with shift captured from the first sample.
     Shifting is algebraically free (var(x) == var(x - c)) and necessary in
     f32: <Etot^2> - <Etot>^2 on raw values loses ALL of Etot's tiny NVE
-    variance to cancellation (measured: reported std 3.6 vs true 0.025 on
-    the reference-default TPU run, round 4)."""
+    variance to cancellation (reported std 3.6 vs true 0.025 on the
+    reference-default run in f32)."""
 
     count: jax.Array
     moments: jax.Array

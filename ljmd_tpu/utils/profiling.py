@@ -5,22 +5,23 @@ JAX-native here).
   format) around a region, e.g. the production scan.
 - ``Throughput``: wall-clock throughput meter reporting steps/s and
   particle-steps/s (the BASELINE metric).
-- ``time_fn``: robust timing of a jitted function on flaky async backends —
-  synchronizes by fetching a data-dependent scalar rather than trusting
-  block_until_ready.
+- ``time_fn``: best-of-n wall time of a jitted function, each call ended
+  by ``jax.block_until_ready`` (dispatch is asynchronous).
+- ``require_gpu`` / ``card_description``: what every on-card measurement
+  checks first and prints beside its numbers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import subprocess
 import time
 from typing import Callable, Optional
 
 import jax
-import jax.numpy as jnp
 
-__all__ = ["trace", "Throughput", "time_fn"]
+__all__ = ["trace", "Throughput", "time_fn", "require_gpu", "card_description"]
 
 
 @contextlib.contextmanager
@@ -71,22 +72,35 @@ class Throughput:
         }
 
 
-def time_fn(fn: Callable, *args, iters: int = 3, sync: Optional[Callable] = None) -> float:
-    """Best-of-``iters`` wall time of ``fn(*args)``. ``sync(out)`` must touch
-    output data (default: fetch the first leaf's first element), forcing real
-    completion even where block_until_ready is unreliable."""
-
-    def default_sync(out):
-        leaf = jax.tree.leaves(out)[0]
-        return float(jnp.ravel(leaf)[0])
-
-    sync = sync or default_sync
-    out = fn(*args)
-    sync(out)  # compile + warm
+def time_fn(fn: Callable, *args, iters: int = 3) -> float:
+    """Best-of-``iters`` wall time of ``fn(*args)`` after one warm-up call
+    (which compiles); each call is timed to ``jax.block_until_ready``."""
+    jax.block_until_ready(fn(*args))
     best = float("inf")
     for _ in range(iters):
         t0 = time.perf_counter()
-        out = fn(*args)
-        sync(out)
+        jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def require_gpu() -> list:
+    """JAX's devices, or SystemExit when the first is not a GPU: an on-card
+    measurement never falls back to another platform."""
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        raise SystemExit(
+            f"error: needs a GPU, but JAX found {devices[0].platform!r} devices"
+        )
+    return devices
+
+
+def card_description() -> str:
+    """``name, power.limit`` of each card as nvidia-smi reports them, read
+    by a child process that stays off JAX. A card set below its maximum
+    power runs slower under load, so every number is kept beside this."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()

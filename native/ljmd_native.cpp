@@ -122,7 +122,8 @@ int ljmd_write_rva(const char *path, int32_t n, double box_length, double dt,
 // Async streaming writer: a worker thread drains a queue of frame blocks,
 // so host-side trajectory IO overlaps device compute (the reference writes
 // synchronously inside its MD loop, md_simulation_program.f90:384-387; the
-// TPU driver fetches sampled blocks per chunk and must not stall on disk).
+// streaming driver fetches sampled blocks per chunk and must not stall on
+// disk).
 // ---------------------------------------------------------------------
 
 namespace {

@@ -1,4 +1,4 @@
-"""Generate engine-level golden parity fixtures (VERDICT round 1, item 6).
+"""Generate engine-level golden parity fixtures.
 
 No gfortran exists in this image, so the fixtures are produced by a
 transparent scalar-loop float64 mirror of the reference engine's algorithm,
@@ -158,7 +158,7 @@ def make_case(num_cells: int, L: float, rc_over_L: float, e_target: float,
 
 
 # ----------------------------------------------------------------------
-# Driver-level mirror (round-5, VERDICT item 7): the full production-driver
+# Driver-level mirror: the full production-driver
 # pipeline — sampling cadence, 11-observable streaming means/stds, centered
 # ACF + normalization, block-averaged ACF, thermodynamic coefficients — in
 # exact-order scalar/NumPy float64, written against the cited Fortran:

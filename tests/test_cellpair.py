@@ -1,5 +1,6 @@
-"""Pencil binning + structured cell-pair engine: binning invariants, force
-parity with the dense kernel, trajectory parity with rebinning."""
+"""Pencil binning + the pencil (cellpair) engine: binning invariants, force
+parity with the dense kernel, trajectory parity with rebinning, and the
+``auto`` routing."""
 
 import jax
 import jax.numpy as jnp
@@ -7,10 +8,11 @@ import numpy as np
 import pytest
 
 from ljmd_tpu.config import config_from_density
-from ljmd_tpu.models.engine import _cellpair_engine, make_engine
+from ljmd_tpu.models.engine import auto_backend, make_engine
 from ljmd_tpu.models.simulation import initialize, run_production
 from ljmd_tpu.ops.cell_list import bin_to_slots, make_pencil_grid, pencil_capacity
 from ljmd_tpu.ops.lj import lj_force_energy_dense
+from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
 
 def big_cfg(**kw):
@@ -28,12 +30,20 @@ def test_pencil_grid_geometry():
     grid = make_pencil_grid(n=500, box_length=9.1, r_list=2.9, density=0.66)
     assert grid.m_xy == 3
     assert grid.capacity % 128 == 0
-    tbl = grid.neighbor_table()
-    assert tbl.shape == (9, 9)
-    # each pencil's neighborhood contains itself and has no duplicates
-    for p in range(9):
-        assert p in tbl[p]
-        assert len(set(tbl[p].tolist())) == 9
+
+    # the sweep's half shell, with its mirror and the pencil itself, covers
+    # each pencil's 9-pencil xy neighborhood exactly once (one device: halo
+    # ids p_loc + iy alias the first x-column, pencil iy)
+    from ljmd_tpu.parallel.spatial_pencil import _local_half_shell_table
+
+    m = 4
+    tbl = _local_half_shell_table(m, m) % (m * m)
+    assert tbl.shape == (m * m, 4)
+    for p in range(m * m):
+        ix, iy = divmod(p, m)
+        want = {((ix + dx) % m) * m + (iy + dy) % m for dx in (-1, 0, 1) for dy in (-1, 0, 1)}
+        got = [p, *tbl[p].tolist(), *(q for q in range(m * m) if p in tbl[q])]
+        assert sorted(got) == sorted(want)
 
 
 def test_pencil_grid_rejects_small_box():
@@ -60,10 +70,10 @@ def test_bin_to_slots_invariants():
 
 
 def test_rebin_slots_packed_matches_stable():
-    """The z_order=False rebin uses an unstable packed single-key sort
-    (exp_sort, 2x faster on v5e); it must assign every particle to the same
-    PENCIL as the stable z-ordered path and produce distinct in-range slots
-    (any within-pencil rank order is contractually acceptable)."""
+    """The rebin uses an unstable packed single-key sort; it must assign
+    every particle to the same PENCIL as the stable (pencil, z) binning of
+    ``bin_to_slots`` and produce distinct in-range slots (any within-pencil
+    rank order is contractually acceptable)."""
     from ljmd_tpu.ops.cell_list import rebin_slots
 
     cfg = big_cfg()
@@ -78,11 +88,11 @@ def test_rebin_slots_packed_matches_stable():
     rows = rows.at[0:3, slot].set(r.T)
     rows = rows.at[3, slot].set(1.0)
 
-    new_z, ovf_z = rebin_slots(rows, rows[3], grid, z_order=True)
-    new_p, ovf_p = rebin_slots(rows, rows[3], grid, z_order=False)
-    assert not bool(ovf_z) and not bool(ovf_p)
+    new_p, ovf_p = rebin_slots(rows, rows[3], grid)
+    assert not bool(ovf_p)
     valid = np.asarray(rows[3]) > 0.5
-    nz, np_ = np.asarray(new_z)[valid], np.asarray(new_p)[valid]
+    # each valid old slot IS the stable binning's slot of its particle
+    nz, np_ = np.nonzero(valid)[0], np.asarray(new_p)[valid]
     # same pencil assignment, distinct in-range slots, invalid -> sentinel
     assert np.array_equal(nz // grid.capacity, np_ // grid.capacity)
     assert len(np.unique(np_)) == cfg.n
@@ -91,9 +101,8 @@ def test_rebin_slots_packed_matches_stable():
 
 
 def test_rebin_gather_matches_scatter_layout():
-    """The engine's gather-form rebin (exp_permute: XLA lane scatters blow
-    up super-linearly at big ns) must produce EXACTLY the layout the
-    scatter form produces from the same sort key, for both key modes."""
+    """The engine's gather-form rebin must produce EXACTLY the layout the
+    scatter form produces from the same sort key."""
     from ljmd_tpu.ops.cell_list import rebin_gather, rebin_slots
 
     cfg = big_cfg()
@@ -109,25 +118,23 @@ def test_rebin_gather_matches_scatter_layout():
     rows = rows.at[3, slot].set(1.0)
     rows = rows.at[4, slot].set(jnp.arange(cfg.n, dtype=rows.dtype))
 
-    for z_order in (False, True):
-        new_slot, ovf_s = rebin_slots(rows, rows[3], grid, z_order=z_order)
-        old_of_new, valid_new, ovf_g = rebin_gather(rows, rows[3], grid,
-                                                    z_order=z_order)
-        assert bool(ovf_s) == bool(ovf_g) == False  # noqa: E712
-        # scatter-form layout
-        want = np.zeros((8, ns + 1))
-        want[:, np.asarray(new_slot)] = np.asarray(rows)
-        want = want[:, :ns]
-        # gather-form layout
-        got = np.asarray(rows)[:, np.asarray(old_of_new)]
-        got *= np.asarray(valid_new)[None, :]
-        np.testing.assert_array_equal(got, want, err_msg=f"z_order={z_order}")
+    new_slot, ovf_s = rebin_slots(rows, rows[3], grid)
+    old_of_new, valid_new, ovf_g = rebin_gather(rows, rows[3], grid)
+    assert bool(ovf_s) == bool(ovf_g) == False  # noqa: E712
+    # scatter-form layout
+    want = np.zeros((8, ns + 1))
+    want[:, np.asarray(new_slot)] = np.asarray(rows)
+    want = want[:, :ns]
+    # gather-form layout
+    got = np.asarray(rows)[:, np.asarray(old_of_new)]
+    got *= np.asarray(valid_new)[None, :]
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cellpair_init_force_parity():
     cfg = big_cfg()
     state = initialize(cfg, backend="dense")
-    eng = _cellpair_engine(cfg, interpret=True)
+    eng = make_pencil_engine(cfg)
     carry, obs = eng.init(state)
     want = lj_force_energy_dense(
         state.r, cfg.box_length, cfg.rc_square, True, cfg.volume, cfg.rc
@@ -167,77 +174,49 @@ def test_pencil_capacity_alignment():
 
 
 def test_auto_backend_selects_cellpair_for_large_n(monkeypatch):
+    """Past PENCIL_MIN_N auto routes to the pencil engine on a GPU host
+    (the neighbor build's N x N arrays stop fitting the card)."""
     from ljmd_tpu.models import engine as E
 
-    # Past the window-list SMEM cliff (n_pad/128 squared > 32768, n ~ 23k)
-    # auto must fall through to the structured pencil engine.
     cfg = config_from_density(num_cells=20, density=0.8442)  # N=32000
     monkeypatch.setattr(
-        E.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()]
+        E.jax, "devices", lambda: [type("D", (), {"platform": "gpu"})()]
     )
+    assert cfg.n >= E.PENCIL_MIN_N
     eng = E.make_engine(cfg, "auto")
-    # cellpair engines expose the pencil_overflow diagnostic
-    import jax.numpy as jnp
 
     class FakeCarry:
         overflow = jnp.asarray(False)
 
+    # pencil engines expose the pencil_overflow diagnostic
     assert "pencil_overflow" in eng.diagnostics(FakeCarry())
 
 
-def test_auto_backend_selects_zsort_mid_n(monkeypatch):
-    """Mid-N (16384) routes to the sorted window-list engine on TPU
-    (measured faster than pencil there: 4.5e7 vs 2.6e7 ps/s on v5e)."""
+EXAMPLE_ROUTES = {
+    "n256_rho0.8.json": "dense",
+    "ensemble64.json": "dense",
+    "n864_liquid.json": "dense",
+    "reference_default.json": "dense",
+    "n4000_production.json": "neighbor",
+    "n62500_large.json": "cellpair",
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_ROUTES))
+def test_auto_routing_table_for_examples_on_gpu(name, monkeypatch):
+    """The GPU ``auto`` routing of every example config: dense below 1024
+    particles, the neighbor list up to PENCIL_MIN_N, pencils above. The
+    routing consults no platform, so a GPU platform changes nothing."""
+    import os
+
+    from ljmd_tpu.config import load_config
     from ljmd_tpu.models import engine as E
 
-    cfg = config_from_density(num_cells=16, density=0.8442)  # N=16384
     monkeypatch.setattr(
-        E.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()]
+        E.jax, "devices", lambda: [type("D", (), {"platform": "gpu"})()]
     )
-    eng = E.make_engine(cfg, "auto")
-    import jax.numpy as jnp
-
-    class FakeCarry:
-        invalid = jnp.asarray(False)
-
-    assert "zsort_invalid" in eng.diagnostics(FakeCarry())
-
-
-def test_half_shell_matches_full_sweep():
-    """Pair-once half-shell sweep == full 9-neighbor sweep (forces, obs) on
-    an equilibrated fluid, f64 interpret."""
-    import jax
-
-    from ljmd_tpu.models.engine import _cellpair_engine
-    from ljmd_tpu.models.simulation import initialize
-
-    cfg = config_from_density(
-        num_cells=5, density=0.66, dt=0.002, dtype="float64",
-        total_steps=10, warmup_steps=30, target_total_energy=-2000.0,
-        neighbor_skin=0.4,
-    )
-    state = initialize(cfg, backend="dense")
-    eng_full = _cellpair_engine(cfg, interpret=True, half_shell=False)
-    eng_hs = _cellpair_engine(cfg, interpret=True, half_shell=True)
-
-    c_f, ob_f = eng_full.init(state)
-    c_h, ob_h = eng_hs.init(state)
-    for key in ("epot", "ekin", "d_epot", "dd_epot"):
-        assert float(getattr(ob_h, key)) == pytest.approx(
-            float(getattr(ob_f, key)), rel=1e-11
-        ), key
-
-    for _ in range(3):
-        c_f, ob_f = jax.jit(eng_full.step)(c_f)
-        c_h, ob_h = jax.jit(eng_hs.step)(c_h)
-    s_f = eng_full.get_state(c_f)
-    s_h = eng_hs.get_state(c_h)
-    for field in ("r", "v", "a"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s_h, field)), np.asarray(getattr(s_f, field)),
-            rtol=1e-9, atol=1e-11, err_msg=field,
-        )
-    assert float(ob_h.epot) == pytest.approx(float(ob_f.epot), rel=1e-9)
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", name)
+    assert auto_backend(load_config(path)) == EXAMPLE_ROUTES[name]
 
 
 def test_compensated_rebin_preserves_parity_across_triggers():
@@ -245,13 +224,11 @@ def test_compensated_rebin_preserves_parity_across_triggers():
     between the cond'd predictive trigger and the branchless always-rebin
     (which rebins 4-8x more often) to f64-roundoff — the rebin neither
     loses compensation bits nor perturbs the physics."""
-    from ljmd_tpu.models.engine import _cellpair_engine
-
     cfg = big_cfg(neighbor_skin=0.3)
     state = initialize(cfg, backend="dense")
     outs = []
     for trig in ("predictive", "always"):
-        eng = _cellpair_engine(cfg, compensated=True, rebin_trigger=trig)
+        eng = make_pencil_engine(cfg, compensated=True, rebin_trigger=trig)
         c, _ = eng.init(state)
         c = jax.jit(lambda cc, eng=eng: eng.run_fast(cc, 48))(c)
         assert not bool(jax.device_get(c.overflow))
@@ -265,21 +242,17 @@ def test_compensated_rebin_preserves_parity_across_triggers():
 
 
 def test_cellpair_rejects_unknown_rebin_trigger():
-    from ljmd_tpu.models.engine import _cellpair_engine
-
     with pytest.raises(ValueError, match="rebin trigger"):
-        _cellpair_engine(big_cfg(), rebin_trigger="sometimes")
+        make_pencil_engine(big_cfg(), rebin_trigger="sometimes")
 
 
 def test_unfused_run_fast_matches_per_step():
-    """The chunked unfused driver (rebin once per chunk, cond-free steps
-    in between) must reproduce the per-step cond'd trajectory through
-    several rebins."""
-    from ljmd_tpu.models.engine import _cellpair_engine
-
+    """The chunked driver (rebin once per chunk, cond-free steps in
+    between) must reproduce the per-step cond'd trajectory through several
+    rebins."""
     cfg = big_cfg(neighbor_skin=0.3)
     state = initialize(cfg, backend="dense")
-    eng = _cellpair_engine(cfg, use_fused=False)
+    eng = make_pencil_engine(cfg)
     assert eng.run_fast is not None
 
     c0, _ = eng.init(state)
@@ -297,95 +270,6 @@ def test_unfused_run_fast_matches_per_step():
             np.asarray(getattr(s_f, field)), np.asarray(getattr(s_s, field)),
             rtol=1e-9, atol=1e-10, err_msg=field,
         )
-
-
-@pytest.mark.slow
-def test_unfused_run_fast_through_production_driver():
-    """run_production must produce identical sampled observables whether
-    the pencil engine runs the fused kernel or the chunked unfused
-    driver (the >VMEM big-N path, forced here via use_fused=False)."""
-    from ljmd_tpu.models.engine import _cellpair_engine
-    from ljmd_tpu.models.simulation import run_production
-
-    cfg = big_cfg(neighbor_skin=0.3)
-    state = initialize(cfg, backend="dense")
-    want = run_production(cfg, state, backend="cellpair")
-
-    import ljmd_tpu.models.engine as eng_mod
-    orig = eng_mod._cellpair_engine
-    try:
-        eng_mod._cellpair_engine = lambda c, **kw: orig(
-            c, use_fused=False, **kw
-        )
-        got = run_production(cfg, state, backend="cellpair")
-    finally:
-        eng_mod._cellpair_engine = orig
-    np.testing.assert_allclose(
-        np.asarray(got.series), np.asarray(want.series),
-        rtol=1e-9, atol=1e-11,
-    )
-
-
-def _iter_eqns(jaxpr):
-    """All eqns in a jaxpr, recursing into sub-jaxprs carried in params
-    (scan/cond/while/pjit bodies) but NOT into pallas_call kernels — the
-    in-kernel fori_loop is Mosaic's, not part of the XLA graph the v5e
-    miscompile guards care about."""
-    for eqn in jaxpr.eqns:
-        yield eqn
-        if eqn.primitive.name == "pallas_call":
-            continue
-        for v in eqn.params.values():
-            for o in v if isinstance(v, (list, tuple)) else (v,):
-                sub = getattr(o, "jaxpr", o)
-                if hasattr(sub, "eqns"):
-                    yield from _iter_eqns(sub)
-
-
-def test_miscompile_workarounds_stay_in_place():
-    """Structural regression guards for the two v5e XLA miscompiles
-    (docs/RESULTS.md "v5e XLA miscompiles"; CLAUDE.md invariants). Neither
-    bug reproduces on CPU, so no behavioral test here can catch a
-    regression — physics corrupts silently ONLY on TPU, and only
-    scripts/check_conservation.py sees it. These assert the structure that
-    avoids them instead.
-
-    (a) rebin_gather must stay un-jitted and searchsorted-free: a
-        searchsorted next to a live lax.scan in the same compiled module
-        returns lane-tile-granular corrupt counts at N=131072.
-    (b) run_fast_unfused's inner chunk steps must stay UNROLLED: a
-        lax.scan over the per-step sweeps downstream of the gather rebin
-        injects energy. The ONLY scan in its graph must be the outer
-        once-per-chunk loop.
-    """
-    from ljmd_tpu.ops import cell_list
-
-    # (a) plain functions (no jit wrapper) ...
-    for fn_name in ("rebin_gather", "rebin_gather_parts", "_pencil_counts"):
-        fn = getattr(cell_list, fn_name)
-        assert type(fn).__name__ == "function", (
-            f"{fn_name} must not be wrapped in jax.jit (v5e miscompile guard)"
-        )
-        # ... whose code object never loads the name 'searchsorted'
-        # (co_names lists names the code actually references; the docstring
-        # does not count)
-        assert "searchsorted" not in fn.__code__.co_names, (
-            f"{fn_name} must stay searchsorted-free (v5e miscompile guard)"
-        )
-
-    # (b) exactly one scan — the outer chunk loop — and nothing scanned
-    # inside it (inner_chunk=8 in the unfused driver; 16 steps -> length-2
-    # outer scan, the regime where the miscompile fired)
-    cfg = big_cfg(neighbor_skin=0.3)
-    state = initialize(cfg, backend="dense")
-    eng = _cellpair_engine(cfg, use_fused=False)
-    c0, _ = eng.init(state)
-    closed = jax.make_jaxpr(lambda c: eng.run_fast(c, 16))(c0)
-    scans = [e for e in _iter_eqns(closed.jaxpr) if e.primitive.name == "scan"]
-    assert len(scans) == 1, (
-        f"run_fast_unfused must contain exactly the outer chunk scan, found "
-        f"{len(scans)} (inner steps must stay unrolled — v5e miscompile guard)"
-    )
 
 
 def test_capacity_from_state_census():
@@ -416,7 +300,7 @@ def test_make_engine_state_aware_capacity():
     # The equilibrated fluid at N=500 / 3x3 pencils has occ ~56 +- fluct,
     # so the census gives the 128 floor; the lattice-safe default is >= it.
     eng_t = make_engine(cfg, "cellpair", state=state)
-    eng_d = _cellpair_engine(cfg)
+    eng_d = make_pencil_engine(cfg)
 
     ct, _ = eng_t.init(state)
     cd, _ = eng_d.init(state)
@@ -439,96 +323,6 @@ def test_make_engine_state_aware_capacity():
     eng_o = make_engine(cfg_o, "cellpair", state=state)
     co, _ = eng_o.init(state)
     assert co.r.shape[1] == 9 * 256
-
-
-def test_mono_sweep_matches_grid_sweep():
-    """Single-program sweep == grid half-shell sweep (f64 interpret), all
-    6 output rows, on a jittered-lattice slot state with partial fills.
-    Both want_observables settings share one slot-state setup."""
-    from ljmd_tpu.models.lattice import fcc_lattice
-    from ljmd_tpu.ops.pallas_pencil2 import (
-        build_half_shell_tables,
-        pallas_pencil_sweep_hs,
-        pallas_pencil_sweep_mono,
-        sentinel_fill,
-    )
-
-    rng = np.random.default_rng(9)
-    n, L = 2048, 13.4
-    grid = make_pencil_grid(n, L, 2.9, n / L**3)
-    r = fcc_lattice(8, L, dtype=jnp.float64)
-    r = (r + jnp.asarray(rng.normal(0, 0.05, size=(n, 3)))) % L
-    slot, ovf = bin_to_slots(r, grid)
-    assert not bool(ovf)
-    ns = grid.n_slots
-    r8 = jnp.zeros((8, ns + 1)).at[0:3, slot].set(r.T)[:, :ns]
-    valid = jnp.zeros((ns + 1,)).at[slot].set(1.0)[:ns]
-    r8 = r8.at[3].set(valid)
-    r8 = sentinel_fill(r8, valid, grid.capacity)
-    counts = valid.reshape(grid.n_pencils, grid.capacity).sum(1).astype(jnp.int32)
-    tbl, shf = build_half_shell_tables(grid)
-    tbl, shf = jnp.asarray(tbl), jnp.asarray(shf)
-
-    for want_obs in (True, False):
-        kw = dict(interpret=True, want_observables=want_obs,
-                  approx_reciprocal=False)
-        out_g = pallas_pencil_sweep_hs(
-            r8, tbl, counts, shf, grid, 6.25, **kw) * r8[3:4]
-        out_m = pallas_pencil_sweep_mono(
-            r8, tbl, counts, shf, grid, 6.25, **kw) * r8[3:4]
-        for row in range(6):
-            scale = max(1.0, float(jnp.max(jnp.abs(out_g[row]))))
-            d = float(jnp.max(jnp.abs(out_g[row] - out_m[row])))
-            assert d < 1e-12 * scale, (want_obs, row, d, scale)
-        if not want_obs:
-            # gate-free variant covers identical physics too
-            out_u = pallas_pencil_sweep_mono(
-                r8, tbl, counts, shf, grid, 6.25, i_gate=False, **kw) * r8[3:4]
-            assert float(jnp.max(jnp.abs(out_m - out_u))) == 0.0
-
-
-@pytest.mark.slow
-def test_mono_strip_sweep_matches_grid(monkeypatch):
-    """x-strip mono decomposition (i-rows + halo row per call, overlap-add
-    merge) == the grid sweep, across rebins. Strips are forced by shrinking
-    the viability threshold so the whole grid doesn't fit but a strip does."""
-    import ljmd_tpu.ops.pallas_pencil2 as pp2
-
-    cfg = config_from_density(
-        num_cells=8, density=0.6, dt=0.004, dtype="float64",
-        neighbor_skin=0.4,
-    )
-    grid = make_pencil_grid(cfg.n, cfg.box_length, cfg.rc + cfg.neighbor_skin,
-                            cfg.density, cfg.neighbor_capacity)
-    m, cap = grid.m_xy, grid.capacity
-    assert m >= 4
-    # allow (ceil(m/2)+1+eps) rows per call but not the full grid
-    limit = (-(-m // 2) + 1) * m * cap
-    monkeypatch.setattr(pp2, "pencil_mono_viable",
-                        lambda ns, itemsize=4: ns <= limit)
-
-    eng_s = _cellpair_engine(cfg, use_fused=False, mono=True)  # strips
-    eng_g = _cellpair_engine(cfg, use_fused=False, mono=False)
-    state = initialize(cfg, jax.random.PRNGKey(4))
-    cs, _ = eng_s.init(state)
-    cg, _ = eng_g.init(state)
-    step_s = jax.jit(lambda c: eng_s.step(c)[0])
-    step_g = jax.jit(lambda c: eng_g.step(c)[0])
-    for _ in range(8):
-        cs = step_s(cs)
-        cg = step_g(cg)
-    ss, sg = eng_s.get_state(cs), eng_g.get_state(cg)
-    assert not bool(cs.overflow)
-    for name in ("r", "v", "a"):
-        a, b = getattr(ss, name), getattr(sg, name)
-        scale = max(1.0, float(jnp.max(jnp.abs(b))))
-        d = float(jnp.max(jnp.abs(a - b)))
-        assert d < 1e-11 * scale, (name, d, scale)
-    # observables agree too
-    _, os_ = jax.jit(eng_s.step)(cs)
-    _, og = jax.jit(eng_g.step)(cg)
-    for f in ("epot", "d_epot", "dd_epot"):
-        assert abs(float(getattr(os_, f) - getattr(og, f))) < 1e-8
 
 
 def test_ensemble_vmap_cellpair_state_capacity():

@@ -1,12 +1,15 @@
-"""Kahan-compensated f32 integration: closer to the f64 oracle than plain
-f32 at small dt (the f32-roundoff-floor regime)."""
+"""Neumaier-compensated f32 integration: closer to the f64 oracle than plain
+f32 at small dt (the f32-roundoff-floor regime), in every engine that
+carries the precision policy."""
 
 import pytest
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ljmd_tpu.config import config_from_density
-from ljmd_tpu.models.engine import _pallas_rows_engine, make_engine
+from ljmd_tpu.models import engine as E
+from ljmd_tpu.models.engine import make_engine
 from ljmd_tpu.models.simulation import initialize
 
 
@@ -22,31 +25,26 @@ def run_engine(eng, state, n_steps):
     return eng.get_state(carry), obs
 
 
-def test_compensation_reduces_f32_error():
+@pytest.mark.parametrize("backend", ["dense", "neighbor"])
+def test_compensation_reduces_f32_error(backend, monkeypatch):
+    # N=256 at rho=0.7: L=7.15 leaves room for the neighbor list's rc + skin
     base = dict(
-        num_cells=2, density=0.7, dt=1e-4, total_steps=10,
-        warmup_steps=0, target_total_energy=-70.0, seed=3,
+        num_cells=4, density=0.7, dt=1e-4, total_steps=10,
+        warmup_steps=0, target_total_energy=-1000.0, seed=3,
     )
     cfg64 = config_from_density(dtype="float64", **base)
     state64 = initialize(cfg64, backend="dense")
-
-    import jax.numpy as jnp
-    import dataclasses
-
     state32 = jax.tree.map(lambda x: x.astype(jnp.float32), state64)
 
     n_steps = 400
     # f64 oracle
-    eng64 = make_engine(cfg64, "dense")
-    s64, _ = run_engine(eng64, state64, n_steps)
+    s64, _ = run_engine(make_engine(cfg64, backend), state64, n_steps)
 
     cfg32 = config_from_density(dtype="float32", **base)
-    s_plain, _ = run_engine(
-        _pallas_rows_engine(cfg32, interpret=True, compensated=False), state32, n_steps
-    )
-    s_comp, _ = run_engine(
-        _pallas_rows_engine(cfg32, interpret=True, compensated=True), state32, n_steps
-    )
+    assert E._compensated(cfg32)  # dt=1e-4 f32: the policy compensates
+    s_comp, _ = run_engine(make_engine(cfg32, backend), state32, n_steps)
+    monkeypatch.setattr(E, "_compensated", lambda cfg: False)
+    s_plain, _ = run_engine(make_engine(cfg32, backend), state32, n_steps)
 
     ref_v = np.asarray(s64.v)
     err_plain = np.abs(np.asarray(s_plain.v, dtype=np.float64) - ref_v).max()
@@ -59,9 +57,7 @@ def test_compensation_reduces_f32_error():
 @pytest.mark.slow
 def test_cellpair_compensation_reduces_f32_error():
     """Same oracle comparison for the pencil engine (its own Kahan path)."""
-    import jax.numpy as jnp
-
-    from ljmd_tpu.models.engine import _cellpair_engine
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
     base = dict(
         num_cells=5, density=0.66, dt=1e-4, total_steps=10,
@@ -76,16 +72,9 @@ def test_cellpair_compensation_reduces_f32_error():
     s64, _ = run_engine(make_engine(cfg64, "dense"), state64, n_steps)
 
     cfg32 = config_from_density(dtype="float32", **base)
-    # compensation auto-enables at dt=1e-4; build a plain variant by faking
-    # a large dt in policy only via compensated_sum False + dt bump? The
-    # engine has no explicit override, so compare compensated f32 against
-    # plain f32 from the ROWS engine oracle instead: the cellpair result
-    # must track the f64 oracle at least as well as plain f32 does.
-    from ljmd_tpu.models.engine import _pallas_rows_engine
-
-    s_cell, _ = run_engine(_cellpair_engine(cfg32, interpret=True), state32, n_steps)
+    s_cell, _ = run_engine(make_pencil_engine(cfg32), state32, n_steps)
     s_plain, _ = run_engine(
-        _pallas_rows_engine(cfg32, interpret=True, compensated=False), state32, n_steps
+        make_pencil_engine(cfg32, compensated=False), state32, n_steps
     )
     ref_v = np.asarray(s64.v)
     err_cell = np.abs(np.asarray(s_cell.v, dtype=np.float64) - ref_v).max()
@@ -101,23 +90,19 @@ def test_compensated_config_flag_roundtrip():
 
 def test_effective_dtype_follows_x64():
     """A float64 config must be treated as float32 by the precision policy
-    when x64 is disabled (the TPU path): arrays silently truncate there, and
-    compensation gated on the REQUESTED dtype left the reference-default
-    dt=1e-4 config integrating in plain f32 (~12%/100k drift, measured)."""
-    import jax as _jax
-    import jax.numpy as _jnp
-
-    from ljmd_tpu.config import config_from_density
-    from ljmd_tpu.models.engine import _effective_dtype
-
+    when x64 is disabled: arrays silently truncate there, and compensation
+    gated on the REQUESTED dtype would leave the reference-default dt=1e-4
+    config integrating in plain f32."""
     cfg = config_from_density(num_cells=2, density=0.5, dt=1e-4,
                               dtype="float64")
-    assert _effective_dtype(cfg) == _jnp.float64  # x64 on (tests force it)
+    assert E._effective_dtype(cfg) == jnp.float64  # x64 on (tests force it)
+    assert not E._compensated(cfg)
     try:
-        _jax.config.update("jax_enable_x64", False)
-        assert _effective_dtype(cfg) == _jnp.float32
+        jax.config.update("jax_enable_x64", False)
+        assert E._effective_dtype(cfg) == jnp.float32
+        assert E._compensated(cfg)
     finally:
-        _jax.config.update("jax_enable_x64", True)
+        jax.config.update("jax_enable_x64", True)
     cfg32 = config_from_density(num_cells=2, density=0.5, dt=1e-4,
                                 dtype="float32")
-    assert _effective_dtype(cfg32) == _jnp.float32
+    assert E._effective_dtype(cfg32) == jnp.float32

@@ -1,12 +1,12 @@
 """step_fast must produce EXACTLY the same dynamics as step — it may only
-skip observable accumulation (the want_observables kernel rows)."""
+skip observable accumulation."""
 
 import jax
 import numpy as np
 import pytest
 
 from ljmd_tpu.config import config_from_density
-from ljmd_tpu.models.engine import _cellpair_engine, _pallas_rows_engine, make_engine
+from ljmd_tpu.models.engine import make_engine
 from ljmd_tpu.models.simulation import initialize
 
 
@@ -18,7 +18,7 @@ def run_steps(eng, carry, step_fn, n):
     return jax.jit(lambda c: jax.lax.scan(body, c, None, length=n)[0])(carry)
 
 
-@pytest.mark.parametrize("engine_name", ["rows", "cellpair", "neighbor"])
+@pytest.mark.parametrize("engine_name", ["dense", "cellpair", "neighbor"])
 def test_fast_step_trajectory_identical(engine_name):
     if engine_name == "cellpair":
         cfg = config_from_density(
@@ -26,13 +26,13 @@ def test_fast_step_trajectory_identical(engine_name):
             total_steps=10, warmup_steps=0, target_total_energy=-2000.0,
             neighbor_skin=0.4,
         )
-        eng = _cellpair_engine(cfg, interpret=True)
-    elif engine_name == "rows":
+        eng = make_engine(cfg, "cellpair")
+    elif engine_name == "dense":
         cfg = config_from_density(
             num_cells=2, density=0.7, dt=0.002, dtype="float64",
             total_steps=10, warmup_steps=0, target_total_energy=-70.0,
         )
-        eng = _pallas_rows_engine(cfg, interpret=True)
+        eng = make_engine(cfg, "dense")
     else:
         cfg = config_from_density(
             num_cells=4, density=0.8, dt=0.002, dtype="float64",

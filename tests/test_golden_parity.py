@@ -1,4 +1,4 @@
-"""Engine-level golden parity (VERDICT round-1 item 6): our engines must
+"""Engine-level golden parity: our engines must
 reproduce checked-in fixtures generated by a scalar-loop float64 mirror of
 the reference engine (tests/golden/generate_golden.py — exact-order
 arithmetic against ``lj_potential_energy.f90:109-223`` + ``verlet.f90:41-97``
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from ljmd_tpu.config import SimConfig
-from ljmd_tpu.models.engine import _force_engine, _pallas_rows_engine
+from ljmd_tpu.models.engine import make_engine
 from ljmd_tpu.models.lattice import fcc_lattice, remove_com_velocity
 from ljmd_tpu.state import MDState
 from ljmd_tpu.utils.ran3 import reference_initial_velocities
@@ -41,6 +41,13 @@ def _cfg(g) -> SimConfig:
     )
 
 
+def _engine(cfg, backend):
+    # The neighbor list needs rc + skin < L/2; the golden boxes leave ~0.2.
+    if backend == "neighbor":
+        cfg = cfg.replace(neighbor_skin=0.1)
+    return make_engine(cfg, backend)
+
+
 def _init_state(cfg, g) -> MDState:
     r = fcc_lattice(cfg.num_cells, cfg.box_length, dtype=jnp.float64)
     v = remove_com_velocity(jnp.asarray(reference_initial_velocities(cfg.n)))
@@ -50,15 +57,11 @@ def _init_state(cfg, g) -> MDState:
 
 
 @pytest.mark.parametrize("k", [2, 3])
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense", "neighbor"])
 def test_lattice_energies_forces_match_golden(k, backend):
     g = _load(k)
     cfg = _cfg(g)
-    eng = (
-        _pallas_rows_engine(cfg, interpret=True)
-        if backend == "pallas"
-        else _force_engine(cfg, "dense")
-    )
+    eng = _engine(cfg, backend)
     state = _init_state(cfg, g)
     carry, obs = eng.init(state)
     gl = g["lattice"]
@@ -77,8 +80,8 @@ def test_lattice_energies_forces_match_golden(k, backend):
 
 @pytest.mark.parametrize("k", [2, 3])
 def test_initialize_ran3_matches_golden_end_to_end(k):
-    """Full init-pipeline parity through the PUBLIC API (VERDICT round-2
-    item 7): initialize(velocity_init="ran3") must reproduce the golden
+    """Full init-pipeline parity through the PUBLIC API:
+    initialize(velocity_init="ran3") must reproduce the golden
     lattice + ran3-velocity + COM-removal + rescale state in one call
     (md_initial_config_program.f90:58-121 with seed -12345)."""
     from ljmd_tpu.models.simulation import initialize
@@ -103,15 +106,11 @@ def test_initialize_ran3_matches_golden_end_to_end(k):
 
 
 @pytest.mark.parametrize("k", [2, 3])
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense", "neighbor"])
 def test_verlet_trajectory_matches_golden(k, backend):
     g = _load(k)
     cfg = _cfg(g)
-    eng = (
-        _pallas_rows_engine(cfg, interpret=True)
-        if backend == "pallas"
-        else _force_engine(cfg, "dense")
-    )
+    eng = _engine(cfg, backend)
     state = _init_state(cfg, g)
     carry, _ = eng.init(state)
 
@@ -131,7 +130,7 @@ def test_verlet_trajectory_matches_golden(k, backend):
 
 
 def test_production_driver_matches_golden_mirror():
-    """Driver-level golden parity (VERDICT round-4 item 7): run_production
+    """Driver-level golden parity: run_production
     end-to-end — sampling cadence, 11-observable streaming means/stds,
     centered ACF + normalization, block-averaged ACF, and thermodynamic
     coefficients — against the scalar-f64 mirror of the reference driver

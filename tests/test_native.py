@@ -95,8 +95,8 @@ def test_async_writer_matches_sync_writer(tmp_path):
 
 def test_writer_append_truncates_torn_frames(tmp_path):
     """A kill during a later chunk's write can leave rva.dat with extra or
-    TORN frame records past the checkpointed count (round-5 N=62500
-    kill-and-resume demo: the resumed file carried a partial frame and
+    TORN frame records past the checkpointed count (an N=62500
+    kill-and-resume run: the resumed file carried a partial frame and
     diverged from the uninterrupted run). open_for_append must truncate to
     the checkpoint's frame count; a file SHORTER than the checkpoint claims
     (pre-sync-fence write ordering) must be rejected loudly."""

@@ -114,15 +114,15 @@ def test_neighbor_engine_matches_dense_trajectory():
 
 
 def test_auto_backend_picks_neighbor_for_large_small_cutoff():
-    from ljmd_tpu.models.engine import _prefer_neighbor
+    from ljmd_tpu.models.engine import auto_backend
 
     big = config_from_density(num_cells=7, density=0.8442)  # N=1372, rc=2.5
-    assert _prefer_neighbor(big)
+    assert auto_backend(big) == "neighbor"
     small = config_from_density(num_cells=2, density=0.5)
-    assert not _prefer_neighbor(small)
+    assert auto_backend(small) == "dense"
     # reference default: rc = 0.49 L -> no room for skin under L/2
     ref = config_from_density(num_cells=7, density=0.5).replace(rc_over_box=0.49)
-    assert not _prefer_neighbor(ref)
+    assert auto_backend(ref) == "dense"
 
 
 def test_simulate_with_neighbor_backend_end_to_end():

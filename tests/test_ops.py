@@ -201,3 +201,73 @@ def test_fcc_energy_matches_oracle():
     assert float(res.epot) == pytest.approx(e0, rel=1e-10)
     # Perfect lattice: forces vanish by symmetry
     assert float(jnp.abs(res.a).max()) < 1e-8
+
+
+# ----------------------------------------------------------------------
+# _pair_terms: the per-pair LJ algebra every engine shares
+# ----------------------------------------------------------------------
+def _r2_grid(dtype):
+    # the interaction range incl. the zero-force point r = 2^(1/6), r = 1,
+    # the cutoff itself and sub-sigma close approaches
+    r = np.concatenate([np.linspace(0.3, 3.2, 4001), [2.0 ** (1.0 / 6.0), 1.0, 2.5]])
+    return jnp.asarray(r * r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_pair_terms_match_f64_oracle(dtype):
+    from ljmd_tpu.ops.lj import _pair_terms
+
+    r2 = _r2_grid(dtype)
+    mask = r2 < jnp.asarray(2.5 * 2.5, dtype)
+    e, du, ddu, inv_r2 = _pair_terms(r2, mask, dtype)
+    for x in (e, du, ddu, inv_r2):
+        assert x.dtype == dtype
+    m = np.asarray(mask)
+    r2_64 = np.asarray(r2, np.float64)
+    inv6 = (1.0 / r2_64) ** 3
+    want = {
+        "e": (inv6 * inv6 - inv6) * m,                 # U/4
+        "du": (inv6 - 2 * inv6 * inv6) * m,            # r dU/dr / 24
+        "ddu": (26 * inv6 * inv6 - 7 * inv6) * m,      # r^2 d2U/dr2 / 24
+        "coef": (2 * inv6 * inv6 - inv6) / r2_64 * m,  # force coefficient / 24
+    }
+    got = {"e": e, "du": du, "ddu": ddu, "coef": -du * inv_r2}
+    # relative where the terms are large; absolute near their zero
+    # crossings (r = 1, 2^(1/6), (26/7)^(1/6)), where operands cancel
+    rtol = 1e-5 if dtype == jnp.float32 else 1e-12
+    for k in want:
+        g = np.asarray(got[k], np.float64)
+        err = np.abs(g - want[k]) / np.maximum(np.abs(want[k]), 1.0)
+        assert float(err[m].max()) < rtol, k
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_pair_terms_zero_outside_mask(dtype):
+    """Masked pairs — beyond the cutoff, and the self pair at r2 = 0 — give
+    exactly zero and never inf/NaN (1/r2 is taken on a safe value)."""
+    from ljmd_tpu.ops.lj import _pair_terms
+
+    r2 = jnp.concatenate([_r2_grid(dtype), jnp.zeros((3,), dtype)])
+    mask = (r2 < jnp.asarray(2.5 * 2.5, dtype)) & (r2 > 0)
+    outs = _pair_terms(r2, mask, dtype)
+    for x in outs:
+        x = np.asarray(x)
+        assert np.all(np.isfinite(x))
+        np.testing.assert_array_equal(x[~np.asarray(mask)], 0.0)
+
+
+def test_pair_terms_force_is_minus_gradient():
+    """f_ij = 24 * coef * r_vec is -dU/dr_i of U = 4 * pair_e (autodiff)."""
+    from ljmd_tpu.ops.lj import _pair_terms
+
+    d = jnp.asarray(np.random.default_rng(0).uniform(0.4, 1.4, (64, 3)), jnp.float64)
+    r2 = jnp.sum(d * d, axis=-1)
+    mask = r2 < 6.25
+
+    def energy(dv):
+        return 4.0 * jnp.sum(_pair_terms(jnp.sum(dv * dv, -1), mask, jnp.float64)[0])
+
+    _, du, _, inv_r2 = _pair_terms(r2, mask, jnp.float64)
+    force = 24.0 * (-du * inv_r2)[:, None] * d
+    np.testing.assert_allclose(np.asarray(force), -np.asarray(jax.grad(energy)(d)),
+                               rtol=1e-10, atol=1e-10)

@@ -123,8 +123,7 @@ def test_mesh_validation():
 
 
 def test_ring_matches_all_gather_and_pallas():
-    """ppermute ring exchange (default) == all_gather path == ring with the
-    Pallas rect kernel, on a 4-way particle axis (VERDICT round-1 item 4)."""
+    """ppermute ring exchange == all_gather path on a 4-way particle axis."""
     cfg = small_cfg()
     state = initialize(cfg, backend="dense")
     mesh = make_mesh(replica=1, particle=4)
@@ -133,7 +132,6 @@ def test_ring_matches_all_gather_and_pallas():
     for name, kw in {
         "ring": dict(comm="ring"),
         "gather": dict(comm="all_gather"),
-        "ring_pallas": dict(comm="ring", use_pallas=True),
     }.items():
         sstep = make_spatial_step_fn(cfg, mesh, **kw)
         s = shard_state(state, mesh)
@@ -143,7 +141,7 @@ def test_ring_matches_all_gather_and_pallas():
         outs[name] = run(s)
 
     ref_state, ref_obs = outs["gather"]
-    for name in ("ring", "ring_pallas"):
+    for name in ("ring",):
         st, obs = outs[name]
         np.testing.assert_allclose(
             np.asarray(st.r), np.asarray(ref_state.r), rtol=1e-11, atol=1e-12,
@@ -158,13 +156,11 @@ def test_ring_matches_all_gather_and_pallas():
 
 
 def test_half_ring_matches_all_gather():
-    """Pair-once half-ring force decomposition (the default comm, VERDICT
-    round-4 item 2) == the ordered-pair all_gather oracle across shard
+    """Pair-once half-ring force decomposition (the default comm)
+    == the ordered-pair all_gather oracle across shard
     counts: d=2 (gated shared hop only), d=3 (odd: full hops only), d=4
-    (full + gated hop), jnp path and Pallas interpret path."""
-    for num_cells, d, use_pallas in [
-        (2, 2, False), (3, 3, False), (2, 4, False), (2, 4, True), (2, 8, False),
-    ]:
+    (full + gated hop), d=8."""
+    for num_cells, d in [(2, 2), (3, 3), (2, 4), (2, 8)]:
         cfg = small_cfg() if num_cells == 2 else config_from_density(
             num_cells=3, density=0.6, total_steps=120, output_interval=10,
             warmup_steps=20, dt=0.002, dtype="float64",
@@ -175,8 +171,7 @@ def test_half_ring_matches_all_gather():
         mesh = make_mesh(replica=1, particle=d)
 
         ref_step = make_spatial_step_fn(cfg, mesh, comm="all_gather")
-        hr_step = make_spatial_step_fn(cfg, mesh, comm="half_ring",
-                                       use_pallas=use_pallas)
+        hr_step = make_spatial_step_fn(cfg, mesh, comm="half_ring")
         s0 = shard_state(state, mesh)
         run_ref = jax.jit(
             lambda s: jax.lax.scan(lambda c, _: ref_step(c), s, None, length=5))
@@ -185,7 +180,7 @@ def test_half_ring_matches_all_gather():
         want_state, want_obs = run_ref(s0)
         got_state, got_obs = run_hr(s0)
 
-        tag = f"d={d} pallas={use_pallas}"
+        tag = f"d={d}"
         np.testing.assert_allclose(
             np.asarray(got_state.r), np.asarray(want_state.r),
             rtol=1e-11, atol=1e-12, err_msg=tag,
@@ -229,7 +224,7 @@ def test_spatial_engine_production_matches_single_device():
 @pytest.mark.slow
 def test_ring_8way_larger_n_forces():
     """8-way particle sharding at N=2048: ring forces equal the single-device
-    dense kernel (meaningful shard sizes, VERDICT round-1 item 4)."""
+    dense kernel (meaningful shard sizes)."""
     cfg = config_from_density(
         num_cells=8, density=0.75, total_steps=10, warmup_steps=0,
         dt=0.002, dtype="float64", target_total_energy=-10000.0,
@@ -259,8 +254,8 @@ def test_ring_8way_larger_n_forces():
 
 
 def test_streaming_ensemble_matches_in_memory():
-    """Host-streamed ensemble series == fully materialized ensemble (VERDICT
-    round-1 item 8); series lives on host as numpy."""
+    """Host-streamed ensemble series == fully materialized ensemble;
+    series lives on host as numpy."""
     from ljmd_tpu.parallel.ensemble import ensemble_simulate_streaming
 
     from ljmd_tpu.parallel.ensemble import HostSeries
@@ -285,8 +280,7 @@ def test_streaming_ensemble_matches_in_memory():
 def test_tree_map_over_ensemble_result_both_paths():
     """jax.tree.map over an EnsembleResult must be safe on both the batched
     (device series) and streaming (HostSeries) paths — the streamed host
-    series is pytree-inert, so a tree.map cannot device-put it (VERDICT
-    round-4 item 5)."""
+    series is pytree-inert, so a tree.map cannot device-put it."""
     from ljmd_tpu.parallel.ensemble import HostSeries, ensemble_simulate_streaming
 
     cfg = small_cfg()
@@ -309,7 +303,7 @@ def test_tree_map_over_ensemble_result_both_paths():
 
 def test_simulate_pipeline_traces_once():
     """Repeated simulate() calls with the same (cfg, backend, record_frames)
-    must reuse one traced pipeline (VERDICT round-4 item 5: the single-run
+    must reuse one traced pipeline (the single-run
     API gets the same cache the ensemble paths have)."""
     from ljmd_tpu.models.simulation import (
         _pipeline_trace_counts,
@@ -329,7 +323,7 @@ def test_simulate_pipeline_traces_once():
 
 @pytest.mark.slow
 def test_streaming_ensemble_8_replicas_end_to_end(tmp_path):
-    """Config-4-at-scale streaming shape on CPU (round-4 VERDICT item 5):
+    """Config-4-at-scale streaming shape on CPU:
     8 replicas through ensemble_simulate_streaming, all replicas healthy,
     per-replica drift bounded, full artifact set written via the shared
     CLI writer (run_many_md.f90:57-82 output contract)."""
@@ -359,7 +353,7 @@ def test_streaming_ensemble_8_replicas_end_to_end(tmp_path):
 
 # ---------------------------------------------------------------------------
 # Sharded STRUCTURED engine (pencil strips + ppermute halo exchange) and the
-# multi-chip precision policy (VERDICT round-2 item 3).
+# multi-device precision policy.
 # ---------------------------------------------------------------------------
 
 
@@ -388,9 +382,8 @@ def test_sharded_pencil_matches_single_device_cellpair():
     structured path composing with the mesh (O(N/d + halo) pair work)."""
     from jax.sharding import Mesh
 
-    from ljmd_tpu.models.engine import _cellpair_engine
     from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
-    from ljmd_tpu.parallel.spatial_pencil import make_sharded_pencil_engine
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
     cfg = config_from_density(
         num_cells=10, density=0.8442, dt=0.004, dtype="float64",
@@ -398,8 +391,8 @@ def test_sharded_pencil_matches_single_device_cellpair():
     )
     st = _melted_state(cfg, temp=1.2)
     mesh = Mesh(np.array(jax.devices()[:5]), (PARTICLE_AXIS,))
-    es = make_sharded_pencil_engine(cfg, mesh)
-    ec = _cellpair_engine(cfg)
+    es = make_pencil_engine(cfg, mesh)
+    ec = make_pencil_engine(cfg)
 
     cs, obs_s = es.init(st)
     cc, obs_c = ec.init(st)
@@ -427,7 +420,7 @@ def test_sharded_pencil_rejects_non_divisor_axis():
     from jax.sharding import Mesh
 
     from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
-    from ljmd_tpu.parallel.spatial_pencil import make_sharded_pencil_engine
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
     cfg = config_from_density(
         num_cells=10, density=0.8442, dt=0.004, dtype="float64",
@@ -435,7 +428,7 @@ def test_sharded_pencil_rejects_non_divisor_axis():
     )  # 5x5 pencil grid
     mesh = Mesh(np.array(jax.devices()[:4]), (PARTICLE_AXIS,))
     with pytest.raises(ValueError, match="does not split"):
-        make_sharded_pencil_engine(cfg, mesh)
+        make_pencil_engine(cfg, mesh)
 
 
 @pytest.mark.slow
@@ -474,7 +467,7 @@ def test_sharded_pencil_compensated_dt1em4_tracks_f64_oracle():
     from jax.sharding import Mesh
 
     from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
-    from ljmd_tpu.parallel.spatial_pencil import make_sharded_pencil_engine
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
     base = dict(num_cells=6, density=0.8442, dt=1e-4, neighbor_skin=0.49)
     cfg64 = config_from_density(dtype="float64", **base)  # N=864, 3x3 grid
@@ -484,7 +477,7 @@ def test_sharded_pencil_compensated_dt1em4_tracks_f64_oracle():
     mesh = Mesh(np.array(jax.devices()[:3]), (PARTICLE_AXIS,))
 
     def run(cfg, st, compensated, n_steps=400):
-        eng = make_sharded_pencil_engine(cfg, mesh, compensated=compensated)
+        eng = make_pencil_engine(cfg, mesh, compensated=compensated)
         c0, _ = eng.init(st)
 
         @jax.jit
@@ -511,7 +504,7 @@ def test_sharded_pencil_compensated_dt1em4_tracks_f64_oracle():
 
 
 def test_spatial_engine_run_fast_matches_per_step():
-    """Fused multi-chip chunks (VERDICT round-3 item 2): the k-step loop
+    """Fused multi-chip chunks: the k-step loop
     inside ONE shard_map must reproduce k per-step shard_map calls exactly
     (same step body, same collectives — only the dispatch granularity
     changes)."""
@@ -550,7 +543,7 @@ def test_sharded_pencil_run_fast_matches_per_step():
     from jax.sharding import Mesh
 
     from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
-    from ljmd_tpu.parallel.spatial_pencil import make_sharded_pencil_engine
+    from ljmd_tpu.parallel.spatial_pencil import make_pencil_engine
 
     cfg = config_from_density(
         num_cells=6, density=0.8442, dt=0.004, dtype="float64",
@@ -558,7 +551,7 @@ def test_sharded_pencil_run_fast_matches_per_step():
     )
     st = _melted_state(cfg, temp=1.2)
     mesh = Mesh(np.array(jax.devices()[:3]), (PARTICLE_AXIS,))
-    eng = make_sharded_pencil_engine(cfg, mesh)
+    eng = make_pencil_engine(cfg, mesh)
 
     c1, _ = eng.init(st)
     c2, _ = eng.init(st)
@@ -576,36 +569,3 @@ def test_sharded_pencil_run_fast_matches_per_step():
             rtol=0, atol=1e-9, err_msg=f,
         )
     assert not bool(jax.device_get(c1.overflow))
-
-
-@pytest.mark.slow
-def test_sharded_pencil_pallas_matches_jnp_sweep():
-    """The production Pallas local sweep (mono half-shell kernel on the
-    strip + halo, sentinel slots, device shift tables; interpret mode on
-    CPU) == the validity-masked jnp fallback, through chunked advance."""
-    from jax.sharding import Mesh
-
-    from ljmd_tpu.parallel.mesh import PARTICLE_AXIS
-    from ljmd_tpu.parallel.spatial_pencil import make_sharded_pencil_engine
-
-    cfg = config_from_density(
-        num_cells=6, density=0.8442, dt=0.004, dtype="float64",
-        neighbor_skin=0.49,
-    )
-    st = _melted_state(cfg, temp=1.2)
-    mesh = Mesh(np.array(jax.devices()[:3]), (PARTICLE_AXIS,))
-    ej = make_sharded_pencil_engine(cfg, mesh, use_pallas=False)
-    ep = make_sharded_pencil_engine(cfg, mesh, use_pallas=True, interpret=True)
-
-    cj, oj = ej.init(st)
-    cp, op = ep.init(st)
-    assert float(op.epot) == pytest.approx(float(oj.epot), rel=1e-12)
-    assert float(op.d_epot) == pytest.approx(float(oj.d_epot), rel=1e-12)
-    cj = jax.jit(lambda c: ej.run_fast(c, 8))(cj)
-    cp = jax.jit(lambda c: ep.run_fast(c, 8))(cp)
-    sj, sp_ = ej.get_state(cj), ep.get_state(cp)
-    for f in ("r", "ru", "v"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(sp_, f)), np.asarray(getattr(sj, f)),
-            rtol=0, atol=1e-9, err_msg=f,
-        )

@@ -136,9 +136,9 @@ def test_means_accumulator_vs_numpy():
 
 
 def test_means_std_f32_no_cancellation():
-    """Shifted moments keep a tiny variance on a huge mean in f32 (round-4
-    find: the raw <x^2>-<x>^2 form reported Etot std 3.6 where the true
-    series std was 0.025 on the reference-default TPU run)."""
+    """Shifted moments keep a tiny variance on a huge mean in f32 (the raw
+    <x^2>-<x>^2 form reported Etot std 3.6 where the true series std was
+    0.025 on an f32 reference-default run)."""
     rng = np.random.default_rng(1)
     n, volume = 500, 1000.0
     n_samp = 500
@@ -247,3 +247,19 @@ def test_thermo_check_finite_raises():
 def test_thermo_rejects_n_too_small():
     with pytest.raises(ValueError):
         thermo_coefs(1, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("n", [100, 2000])
+def test_autocorr_f32_matches_float64_numpy(n):
+    """The f32 autocorrelation of a centred series with a tiny variance (an
+    NVE Etot trace) against float64 numpy on the same f32 input: the dot
+    runs at HIGHEST precision, so the error stays at f32 accumulation level
+    (a TF32 dot would err ~5e-4 per product)."""
+    rng = np.random.default_rng(n)
+    etot = -18800.0 + 0.05 * np.cumsum(rng.normal(size=n)) / np.sqrt(n)
+    x = (etot - etot.mean()).astype(np.float32)
+    max_lag = n // 2
+    got = np.asarray(autocorr(jnp.asarray(x), max_lag, centered=False), np.float64)
+    x64 = x.astype(np.float64)
+    want = np.array([x64[: n - L] @ x64[L:] / (n - L) for L in range(max_lag + 1)])
+    assert float(np.max(np.abs(got - want))) <= 1e-5 * want[0]

@@ -92,9 +92,9 @@ def test_streaming_resume_bit_exact_cellpair(tmp_path):
     """BINNED-engine resume must restore the engine CARRY verbatim: the
     mid-run rebin order is history-dependent (the unstable pencil sort keys
     on the previous slot index), so a state-based re-init yields a different
-    within-pencil rank order and a different summation order. Found by the
-    round-5 N=62500 kill-and-resume demo on TPU (resumed means differed at
-    ~5e-7); this pins EXACT equality with the uninterrupted run."""
+    within-pencil rank order and a different summation order (an N=62500
+    kill-and-resume run's resumed means differed at ~5e-7); this pins EXACT
+    equality with the uninterrupted run."""
     cfg = config_from_density(
         num_cells=5, density=0.66, dt=0.002, dtype="float64",
         neighbor_skin=0.4, total_steps=160, output_interval=10,
